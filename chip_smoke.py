@@ -1,0 +1,583 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
+
+    python3 chip_smoke.py
+
+Drives the port's main path (``repro_torch.core.torch_backend.compile_expr``
+-> ``CompiledExpr.__call__``) end to end on the card and checks every
+result against a float64 numpy/scipy oracle. Operands are integer valued
+(1-8) from a fixed numpy seed, so every float32 partial sum is an exact
+integer and results must EQUAL the oracle whatever order the atomics take.
+
+Phases:
+  (a) build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  (b) the 14 Table-1 expressions at i=6, j=5, k=4, l=3, plus the
+      multi-fiber locate case;
+  (c) SpMV  x(i) = B(i,j) * c(j), B cc 16384 x 16384 (~1.07M nonzeros);
+  (d) Gustavson SpMSpM X(i,j) = B(i,k) * C(k,j), order ikj, 4096^3 at
+      0.5% density each (key bound above the dense-workspace limit, so the
+      sort-merge runs with segment_reduce as its inner sum);
+      then the same loop at 1024^3 and 1% density, whose 2**20-key result
+      keeps the collapse on scatter_workspace in mul_pair mode;
+  (e) Plus3 X(i,j) = B + C + D, 1024 x 1024 at 5% density each;
+  (f) every kernel against its plain PyTorch version at the shapes (c)-(e)
+      gave it, and fused_imr through the intersect_mul_reduce entry on
+      sorted streams with NA = 4M, NB = 1M, num_slots = 2**20.
+
+Launch counters are zeroed before (b) and read after (e): scatter_workspace
+and segment_reduce must have launched there. fused_imr's counter is zeroed
+before its own entry call in (f) and read after it. Any mismatch or error
+exits non-zero. The last lines printed are the ``kernels`` JSON line, the
+card's name and power limit from nvidia-smi, and the ``ok`` JSON line.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 20260
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory bandwidth (data sheet)
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+TABLE1 = [
+    ("SpMV", "x(i) = B(i,j) * c(j)", "ij", {"B": "cc", "c": "c"}),
+    ("SpMSpM_lc", "X(i,j) = B(i,k) * C(k,j)", "ikj", {"B": "cc", "C": "cc"}),
+    ("SpMSpM_ip", "X(i,j) = B(i,k) * C(k,j)", "ijk", {"B": "cc", "C": "cc"}),
+    ("SpMSpM_op", "X(i,j) = B(i,k) * C(k,j)", "kij", {"B": "cc", "C": "cc"}),
+    ("SDDMM", "X(i,j) = B(i,j) * C(i,k) * D(j,k)", "ijk",
+     {"B": "cc", "C": "cc", "D": "cc"}),
+    ("InnerProd", "x = B(i,j,k) * C(i,j,k)", "ijk", {"B": "ccc", "C": "ccc"}),
+    ("TTV", "X(i,j) = B(i,j,k) * c(k)", "ijk", {"B": "ccc", "c": "c"}),
+    ("TTM", "X(i,j,k) = B(i,j,l) * C(k,l)", "ijkl", {"B": "ccc", "C": "cc"}),
+    ("MTTKRP", "X(i,j) = B(i,k,l) * C(j,k) * D(j,l)", "ijkl",
+     {"B": "ccc", "C": "cc", "D": "cc"}),
+    ("Residual", "x(i) = b(i) - C(i,j) * d(j)", "ij",
+     {"b": "c", "C": "cc", "d": "c"}),
+    ("MatTransMul", "x(i) = alpha * Bt(i,j) * c(j) + beta * d(i)", "ij",
+     {"Bt": "cc", "c": "c", "d": "c", "alpha": "", "beta": ""}),
+    ("MMAdd", "X(i,j) = B(i,j) + C(i,j)", "ij", {"B": "cc", "C": "cc"}),
+    ("Plus3", "X(i,j) = B(i,j) + C(i,j) + D(i,j)", "ij",
+     {"B": "cc", "C": "cc", "D": "cc"}),
+    ("Plus2", "X(i,j,k) = B(i,j,k) + C(i,j,k)", "ijk",
+     {"B": "ccc", "C": "ccc"}),
+]
+TABLE1_DIMS = {"i": 6, "j": 5, "k": 4, "l": 3}
+KERNEL_META = {
+    "scatter_workspace": (
+        "src/repro_torch/kernels/csrc/scatter_workspace.cu",
+        "src/repro/kernels/scatter_workspace.py:87"),
+    "segment_reduce": (
+        "src/repro_torch/kernels/csrc/segment_reduce.cu",
+        "src/repro/kernels/segment_reduce.py:67"),
+    "fused_imr": (
+        "src/repro_torch/kernels/csrc/fused_stream.cu",
+        "src/repro/kernels/fused_stream.py:98"),
+}
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def sparse_int(rng, shape, density):
+    """Dense float64 array with ~density nonzeros, values in 1..8."""
+    n = int(np.prod(shape))
+    flat = np.unique(rng.integers(0, n, int(n * density)))
+    arr = np.zeros(n)
+    arr[flat] = rng.integers(1, 9, flat.size)
+    return arr.reshape(shape)
+
+
+def tree_to_dense(ft) -> np.ndarray:
+    """Vectorized dense expansion of a d/c FiberTree (original axes)."""
+    if ft.order == 0:
+        return np.asarray(ft.vals[0])
+    coords = np.zeros((1, 0), dtype=np.int64)
+    for lv in ft.levels:
+        if lv.format == "dense":
+            c = np.arange(lv.dim)
+            coords = np.concatenate(
+                [np.repeat(coords, lv.dim, axis=0),
+                 np.tile(c, len(coords))[:, None]], axis=1)
+        else:
+            counts = np.diff(np.asarray(lv.seg))[:len(coords)]
+            coords = np.concatenate(
+                [np.repeat(coords, counts, axis=0),
+                 np.asarray(lv.crd)[:, None]], axis=1)
+    out = np.zeros(ft.shape)
+    out[tuple(coords.T)] = ft.vals
+    return np.transpose(out, np.argsort(ft.mode_order))
+
+
+def check_equal(name, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (np.abs(got - want).max() if got.shape == want.shape
+               else f"shape {got.shape} != {want.shape}")
+        raise AssertionError(f"{name}: result differs from oracle ({bad})")
+
+
+def oracle(expr, arrays):
+    """numpy einsum evaluation of a sum-of-products assignment."""
+    from repro_torch.core.einsum import parse
+
+    assign = parse(expr)
+    out_subs = "".join(assign.lhs.vars)
+    total = None
+    for t in assign.terms:
+        spec = ",".join("".join(f.vars) for f in t.factors)
+        val = np.einsum(spec + "->" + out_subs,
+                        *[arrays[f.tensor] for f in t.factors])
+        total = t.sign * val if total is None else total + t.sign * val
+    return total
+
+
+def warm_ms(fn, reps=5):
+    """Median host-clock ms over ``reps`` calls after one warm-up (each
+    call ends in a device-to-host copy of the result, which synchronizes)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def event_ms(fn, reps=20):
+    """Device time per call from CUDA events around ``reps`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_device_ms(fn, match, reps=20):
+    """Per-call device time of ``fn`` from torch.profiler's kernel events:
+    (all kernels, the kernels whose name contains ``match``), or
+    (None, None) when the profiler recorded no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = mine = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += evt.self_device_time_total
+        if match in evt.key:
+            mine += evt.self_device_time_total
+    if not total:
+        return None, None
+    return total / reps / 1e3, mine / reps / 1e3
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import coord_ops as co
+    from repro_torch.core.schedule import Format, Schedule
+    from repro_torch.core.torch_backend import clear_compile_cache, compile_expr
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_stream import (fused_imr_workspace,
+                                                  fused_imr_workspace_plain)
+    from repro_torch.kernels.scatter_workspace import scatter_workspace_plain
+    from repro_torch.kernels.segment_reduce import segment_reduce_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    # -- (a) build -------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    log(f"[a] kernels built in {time.perf_counter() - t0:.2f} s -> "
+        f"{lib_path.name}")
+    for src, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[a] {src}: {line.strip()}")
+    log(f"[a] {smi}")
+
+    from repro_torch.kernels.scatter_workspace import scatter_workspace
+    from repro_torch.kernels.segment_reduce import segment_reduce
+
+    # the tensors the main path hands each kernel wrapper, by phase, so (f)
+    # can hold each kernel against its plain version at those shapes
+    seen = {}
+    wrappers = {scatter_workspace.__code__: "scatter_workspace",
+                segment_reduce.__code__: "segment_reduce"}
+
+    def record_kernel_inputs(tag, fn):
+        """Run ``fn`` once, keeping a copy of the arguments of every call
+        to a kernel wrapper (observed with a profile hook: nothing in the
+        package is rebound)."""
+        def hook(frame, event, arg):
+            name = wrappers.get(frame.f_code) if event == "call" else None
+            if name is not None:
+                seen.setdefault(tag, {}).setdefault(name, []).append({
+                    k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in frame.f_locals.items()})
+        sys.setprofile(hook)
+        try:
+            fn()
+        finally:
+            sys.setprofile(None)
+
+    rng = np.random.default_rng(SEED)
+    kops.reset_launch_counts()
+    per_phase = {}
+
+    # -- (b) Table 1 -------------------------------------------------------
+    for name, expr, order, fmts in TABLE1:
+        from repro_torch.core.einsum import parse
+        arrays = {}
+        for t in parse(expr).terms:
+            for f in t.factors:
+                if f.tensor not in arrays:
+                    arrays[f.tensor] = (
+                        np.asarray(float(rng.integers(1, 5))) if not f.vars
+                        else sparse_int(rng, tuple(TABLE1_DIMS[v]
+                                                   for v in f.vars), 0.4))
+        eng = compile_expr(expr, Format(dict(fmts)),
+                           Schedule(loop_order=tuple(order)), TABLE1_DIMS)
+        check_equal(name, tree_to_dense(eng(arrays)), oracle(expr, arrays))
+    B = sparse_int(rng, (6, 7), 0.5)
+    C = sparse_int(rng, (6, 7), 0.5)
+    for cf in ("dd", "dc", "cc"):
+        eng = compile_expr(
+            "X(i,j) = B(i,j) * C(i,j)", Format({"B": "cc", "C": cf}),
+            Schedule(loop_order=("i", "j"), locate=frozenset({("C", "j")})),
+            {"i": 6, "j": 7})
+        check_equal(f"locate-{cf}", tree_to_dense(eng({"B": B, "C": C})),
+                    B * C)
+    per_phase["b"] = kops.launch_counts()
+    log(f"[b] 14 Table-1 cases + 3 multi-fiber locate cases equal numpy; "
+        f"launches {per_phase['b']}")
+
+    workloads = {}
+
+    def host_profile(fn, top=6):
+        """Where one warm call spends its host time: the functions of the
+        package with the most cumulative time under cProfile (which slows
+        Python-heavy stages, so these are shares, not latencies)."""
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        prof.runcall(fn)
+        rows = []
+        for (path, _, func), (_, _, _, cum, _) in pstats.Stats(
+                prof).stats.items():
+            if "repro_torch" in path and func != "__call__":
+                rows.append((cum * 1e3, f"{pathlib.Path(path).stem}.{func}"))
+        rows.sort(reverse=True)
+        return [{"cum_ms": ms, "name": name} for ms, name in rows[:top]]
+
+    def device_profile(fn):
+        """Kernel time on the card during one warm call (torch.profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for evt in prof.key_averages():
+            # kernel events only: the host ops that launched them report
+            # the same device time again
+            dev_us = evt.self_device_time_total
+            if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us:
+                rows.append((dev_us / 1e3, evt.count, evt.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        return {"wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": (1 - busy / wall) if busy else None,
+                "top_kernels": [{"ms": ms, "count": n, "name": k[:80]}
+                                for ms, n, k in rows[:8]]}
+
+    def run_workload(tag, label, expr, fmts, order, dims, arrays, want):
+        before = kops.launch_counts()
+        eng = compile_expr(expr, Format(fmts), Schedule(loop_order=order),
+                           dims)
+        t0 = time.perf_counter()
+        got = eng(arrays)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check_equal(label, tree_to_dense(got), want)
+        ms = warm_ms(lambda: eng(arrays))
+        check_equal(label + " (warm)", tree_to_dense(eng(arrays)), want)
+        record_kernel_inputs(tag, lambda: eng(arrays))
+        host = host_profile(lambda: eng(arrays))
+        prof = device_profile(lambda: eng(arrays))
+        after = kops.launch_counts()
+        per_phase[tag] = {k: after[k] - before[k] for k in after}
+        workloads[label] = {"first_ms": first_ms, "warm_ms": ms,
+                            "result_nnz": int(np.count_nonzero(want)),
+                            "host_profile": host, "profile": prof,
+                            "stats": dict(eng.stats)}
+        idle = prof["idle_share"]
+        log(f"[{tag}] {label}: first call {first_ms:.1f} ms, warm median "
+            f"{ms:.1f} ms over 5 calls; result nnz "
+            f"{workloads[label]['result_nnz']}; launches {per_phase[tag]}")
+        log(f"[{tag}] {label}: host (cProfile cumulative ms) " + ", ".join(
+            f"{r['name']} {r['cum_ms']:.1f}" for r in host))
+        log(f"[{tag}] {label}: profiled call {prof['wall_ms']:.1f} ms with "
+            f"{prof['device_busy_ms']:.3f} ms of kernels on the card, idle "
+            f"share " + ("not measured" if idle is None else f"{idle:.4f}"))
+        for row in prof["top_kernels"][:4]:
+            log(f"[{tag}]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+        log(f"[{tag}] engine stats {eng.stats}")
+
+    # -- (c) SpMV ------------------------------------------------------------
+    import scipy.sparse as sp
+
+    n = 16384
+    B = sparse_int(rng, (n, n), 0.004)
+    c = rng.integers(1, 9, n).astype(float)
+    log(f"[c] B nnz {np.count_nonzero(B)}")
+    run_workload("c", "SpMV 16384", "x(i) = B(i,j) * c(j)",
+                 {"B": "cc", "c": "c"}, ("i", "j"), {"i": n, "j": n},
+                 {"B": B, "c": c}, sp.csr_matrix(B) @ c)
+    del B
+
+    # -- (d) Gustavson SpMSpM ----------------------------------------------
+    n = 4096
+    B = sparse_int(rng, (n, n), 0.005)
+    C = sparse_int(rng, (n, n), 0.005)
+    Bs, Cs = sp.csr_matrix(B), sp.csr_matrix(C)
+    products = int(np.diff(Cs.indptr)[Bs.indices].sum())
+    log(f"[d] B nnz {Bs.nnz}, C nnz {Cs.nnz}, products {products}")
+    run_workload("d", "SpMSpM 4096 ikj", "X(i,j) = B(i,k) * C(k,j)",
+                 {"B": "cc", "C": "cc"}, ("i", "k", "j"),
+                 {"i": n, "j": n, "k": n}, {"B": B, "C": C},
+                 (Bs @ Cs).toarray())
+    del B, C, Bs, Cs
+
+    # the same loop with a result of 1024 x 1024 = 2**20 keys: the collapse
+    # stays inside the dense-workspace bound, so mul_reduce runs
+    # scatter_workspace in mul_pair mode
+    n = 1024
+    B = sparse_int(rng, (n, n), 0.01)
+    C = sparse_int(rng, (n, n), 0.01)
+    run_workload("d2", "SpMSpM 1024 ikj", "X(i,j) = B(i,k) * C(k,j)",
+                 {"B": "cc", "C": "cc"}, ("i", "k", "j"),
+                 {"i": n, "j": n, "k": n}, {"B": B, "C": C},
+                 (sp.csr_matrix(B) @ sp.csr_matrix(C)).toarray())
+    del B, C
+
+    # -- (e) Plus3 -------------------------------------------------------------
+    n = 1024
+    arrays = {t: sparse_int(rng, (n, n), 0.05) for t in "BCD"}
+    run_workload("e", "Plus3 1024", "X(i,j) = B(i,j) + C(i,j) + D(i,j)",
+                 {"B": "cc", "C": "cc", "D": "cc"}, ("i", "j"),
+                 {"i": n, "j": n}, arrays,
+                 arrays["B"] + arrays["C"] + arrays["D"])
+
+    main_counts = kops.launch_counts()
+    log(f"[b-e] launches on the main path: {main_counts}")
+    for name in ("scatter_workspace", "segment_reduce"):
+        for tag in ("c", "d", "d2", "e"):
+            if name in seen.get(tag, {}) and per_phase[tag][name] == 0:
+                raise AssertionError(f"{name} was called in ({tag}) but "
+                                     f"never launched")
+        if not any(per_phase[t][name] for t in ("c", "d", "d2", "e")):
+            raise AssertionError(f"{name} never launched in (c)-(e)")
+
+    # -- (f) kernels against their plain versions ----------------------------
+    # each kernel is timed at the last input a warm (plan-cached) call of
+    # each workload handed it; the kernels line carries the largest of
+    # those shapes
+    kernels, measured = [], []
+
+    def report(name, launches, kernel, plain, library, nbytes, nops, where):
+        out_k = kernel()
+        out_p = plain()
+        torch.cuda.synchronize()
+        err = float((out_k.double() - out_p.double()).abs().max()) \
+            if out_k.numel() else 0.0
+        if out_k.shape != out_p.shape or err != 0.0:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version at {where} (max abs err {err})")
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = nops / FP32_OPS_PER_S
+        row = {"name": name, "route": "cuda",
+               "source": KERNEL_META[name][0],
+               "replaces": KERNEL_META[name][1], "launches": launches,
+               "max_abs_err": err, "ms": event_ms(kernel),
+               "plain_ms": event_ms(plain), "bound_ms": max(t_bytes, t_ops)
+               * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else
+               "operations", "library_ms": event_ms(library),
+               "shape": where, "bytes": nbytes}
+        # CUDA events time the wrapper call as the engine pays it, host
+        # launch gaps included; the profiler splits out device time
+        row["device_ms"], row["kernel_device_ms"] = profiled_device_ms(
+            kernel, name)          # each kernel's symbol contains its name
+        measured.append(row)
+        dev = ("device not measured" if row["device_ms"] is None else
+               f"device {row['device_ms']:.4f}, of it the kernel "
+               f"{row['kernel_device_ms']:.4f}")
+        log(f"[f] {name} at {where}: ms {row['ms']:.4f} ({dev}) plain_ms "
+            f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+            f"bound_ms {row['bound_ms']:.4f} max_abs_err {err}")
+        return row
+
+    for name in ("scatter_workspace", "segment_reduce"):
+        rows = []
+        for tag in ("c", "d", "d2", "e"):
+            calls = seen.get(tag, {}).get(name, [])
+            if not calls:
+                continue
+            kw = calls[-1]
+            if name == "scatter_workspace":
+                ids, cols = kw["ids"], kw["cols"]
+                slots, mp = kw["num_slots"], kw["mul_pair"]
+                c_out = 2 if mp else cols.shape[1]
+                ids64 = ids.long().clamp(0, slots)
+                lib_cols = cols[:, :c_out].contiguous()
+                rows.append(report(
+                    name, main_counts[name],
+                    lambda: scatter_workspace(ids, cols, num_slots=slots,
+                                              mul_pair=mp),
+                    lambda: scatter_workspace_plain(ids, cols,
+                                                    num_slots=slots,
+                                                    mul_pair=mp),
+                    lambda: torch.zeros((slots + 1, c_out), device="cuda"
+                                        ).index_add_(0, ids64, lib_cols),
+                    ids.numel() * ids.element_size() + cols.numel() * 4
+                    + slots * c_out * 4,
+                    ids.numel() * c_out,
+                    f"({tag}) N={ids.numel()} C={cols.shape[1]} "
+                    f"slots={slots} mul_pair={mp}"))
+            else:
+                vals, sids = kw["vals"], kw["seg_ids"]
+                nseg = kw["num_segments"]
+                sids64 = sids.long().clamp(0, nseg)
+                rows.append(report(
+                    name, main_counts[name],
+                    lambda: segment_reduce(vals, sids, num_segments=nseg),
+                    lambda: segment_reduce_plain(vals, sids,
+                                                 num_segments=nseg),
+                    lambda: torch.zeros((nseg + 1, vals.shape[1]),
+                                        device="cuda"
+                                        ).index_add_(0, sids64, vals),
+                    sids.numel() * sids.element_size() + vals.numel() * 4
+                    + nseg * vals.shape[1] * 4,
+                    vals.numel(),
+                    f"({tag}) N={vals.shape[0]} D={vals.shape[1]} "
+                    f"S={nseg}"))
+        kernels.append(max(rows, key=lambda r: r["bytes"]))
+
+    # fused_imr: its own phase through the intersect_mul_reduce entry
+    na, nb, slots = 4 << 20, 1 << 20, 1 << 20
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    space = 16 << 20
+    a_key = torch.unique(torch.randint(0, space, (int(na * 1.1),),
+                                       device="cuda", generator=g))[:na]
+    b_key = torch.unique(torch.randint(0, space, (int(nb * 1.1),),
+                                       device="cuda", generator=g))[:nb]
+    a_key = a_key.long()
+    b_key = b_key.long()
+    na, nb = a_key.numel(), b_key.numel()
+    a_valid = torch.ones(na, dtype=torch.bool, device="cuda")
+    b_valid = torch.arange(nb, device="cuda") < nb - 4096    # prefix-valid
+    b_key = torch.where(b_valid, b_key, co.PAD_KEY)
+    a_vals = torch.randint(1, 9, (na,), device="cuda", generator=g).float()
+    b_vals = torch.randint(1, 9, (nb,), device="cuda", generator=g).float()
+    out_key = torch.randint(0, slots, (na,), device="cuda", generator=g)
+    imr = kops.sam_primitive("intersect_mul_reduce", "cuda")
+    fused_imr_workspace.launches = 0
+    uk, uv, uvalid, count = imr(a_key, a_valid, a_vals, b_key, b_valid,
+                                b_vals, out_key, slots, key_bound=slots)
+    imr_launches = fused_imr_workspace.launches
+    if imr_launches < 1:
+        raise AssertionError("intersect_mul_reduce never launched fused_imr")
+    fk, fv, fvalid, fcount = co.fused_intersect_mul_reduce(
+        a_key, a_valid, a_vals, b_key, b_valid, b_vals, out_key, slots,
+        key_bound=slots)
+    if (int(count) != int(fcount) or not torch.equal(uk, fk)
+            or not torch.equal(uv, fv) or not torch.equal(uvalid, fvalid)):
+        raise AssertionError("intersect_mul_reduce entry differs from the "
+                             "coord_ops composition")
+    hits = int((uvalid & (uv != 0)).sum())
+    log(f"[f] intersect_mul_reduce entry equals coord_ops on NA={na} "
+        f"NB={nb} slots={slots}: {int(count)} slots appeared, {hits} live")
+    bk_in = torch.where(b_valid, b_key, co.PAD_KEY)
+    bv_in = torch.where(b_valid, b_vals, 0.0)
+    idx = torch.searchsorted(bk_in, a_key).clamp(max=nb - 1)
+    hit = bk_in[idx] == a_key
+    lib_ids = torch.where(hit, out_key, slots)
+    lib_cols = torch.stack([a_vals * bv_in[idx], hit.float()], 1)
+    kernels.append(report("fused_imr", imr_launches,
+           lambda: fused_imr_workspace(a_key, a_vals, out_key, bk_in, bv_in,
+                                       num_slots=slots),
+           lambda: fused_imr_workspace_plain(a_key, a_vals, out_key, bk_in,
+                                             bv_in, num_slots=slots),
+           lambda: torch.zeros((slots + 1, 2), device="cuda"
+                               ).index_add_(0, lib_ids, lib_cols),
+           na * (8 + 4 + 8) + nb * (8 + 4) + slots * 2 * 4,
+           na * 3,
+           f"NA={na} NB={nb} slots={slots}"))
+
+    clear_compile_cache()
+    summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+               "workloads": workloads, "launches_by_phase": per_phase,
+               "kernels": measured}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    for label, w in workloads.items():
+        log(f"[workload] {label}: warm {w['warm_ms']:.3f} ms")
+    log(json.dumps({"kernels": [
+        {k: v for k, v in r.items()
+         if k not in ("shape", "bytes", "device_ms", "kernel_device_ms")}
+        for r in kernels]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
