@@ -22,15 +22,33 @@ Phases:
       then the same loop at 1024^3 and 1% density, whose 2**20-key result
       keeps the collapse on scatter_workspace in mul_pair mode;
   (e) Plus3 X(i,j) = B + C + D, 1024 x 1024 at 5% density each;
-  (f) every kernel against its plain PyTorch version at the shapes (c)-(e)
+  (g)-(j) the block-sparse (b-format) path at the full widths of
+      llama3.2-3b-bsr (d_model 3072, d_ff 8192, 24 heads of 128, window
+      4096 = 32 blocks of 128), through compile_expr -> BsrEngine:
+  (g) SpMM x(i,k) = B(i,j) * C(j,k): B = W1^T 8192 x 3072 with 25% of its
+      128-blocks kept, C = X^T 3072 x 4096 tokens (spmm_bsr);
+  (h) SDDMM X(i,j) = M(i,j) * A(i,k) * C(j,k): M the 8192 x 8192 causal
+      sliding-window block mask, A = Q and C = K 8192 x 128 (sddmm_bsr);
+      (g) and (h) hold integers |v| <= 3, so they must EQUAL the oracle;
+  (i) attention O(i,d) = M(i,j) * Q(i,e) * K(j,e) * V(j,d), one head,
+      S = 8192, E = D = 128, the mask of (h), standard normal data
+      (bsr_attention), within ATTN_TOL of a float64 oracle;
+  (j) bsr_flash_attention called directly on all 24 heads, with
+      kv_idx = sliding_window_kv_idx(64, 64, 32), causal off and on;
+  (f) every kernel against its plain PyTorch version at the shapes (c)-(j)
       gave it, and fused_imr through the intersect_mul_reduce entry on
-      sorted streams with NA = 4M, NB = 1M, num_slots = 2**20.
+      sorted streams with NA = 4M, NB = 1M, num_slots = 2**20. The
+      block-sparse kernels are also held on a fully masked q block (zeros)
+      and in bfloat16.
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
-and segment_reduce must have launched there. fused_imr's counter is zeroed
-before its own entry call in (f) and read after it. Any mismatch or error
-exits non-zero. The last lines printed are the ``kernels`` JSON line, the
-card's name and power limit from nvidia-smi, and the ``ok`` JSON line.
+and segment_reduce must have launched there. They are zeroed again before
+each of (g)-(j) and read after it: its kernel must have launched there, and
+(g)-(i) must report block size 128 and no fallback call. fused_imr's counter
+is zeroed before its own entry call in (f) and read after it. Any mismatch
+or error exits non-zero. The last lines printed are the ``kernels`` JSON
+line, the card's name and power limit from nvidia-smi, and the ``ok`` JSON
+line.
 """
 from __future__ import annotations
 
@@ -49,6 +67,13 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 20260
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory bandwidth (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# (i) against its float64 oracle: float32 scores and float32 sums over up
+# to 4096 keys a row leave errors near 1e-6; 1e-4 leaves room for that
+ATTN_TOL = 1e-4
+# a block-sparse kernel against its plain version on the same inputs:
+# float32 differs only in summation order (the tolerance of the
+# reference's own kernel tests); bfloat16 also rounds the output once
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
 TABLE1 = [
     ("SpMV", "x(i) = B(i,j) * c(j)", "ij", {"B": "cc", "c": "c"}),
@@ -83,6 +108,15 @@ KERNEL_META = {
     "fused_imr": (
         "src/repro_torch/kernels/csrc/fused_stream.cu",
         "src/repro/kernels/fused_stream.py:98"),
+    "spmm_bsr": (
+        "src/repro_torch/kernels/csrc/spmm_bsr.cu",
+        "src/repro/kernels/spmm_bsr.py:71"),
+    "sddmm_bsr": (
+        "src/repro_torch/kernels/csrc/sddmm_bsr.cu",
+        "src/repro/kernels/sddmm_bsr.py:61"),
+    "bsr_attention": (
+        "src/repro_torch/kernels/csrc/bsr_attention.cu",
+        "src/repro/kernels/bsr_attention.py:108"),
 }
 
 
@@ -125,6 +159,37 @@ def check_equal(name, got, want):
         bad = (np.abs(got - want).max() if got.shape == want.shape
                else f"shape {got.shape} != {want.shape}")
         raise AssertionError(f"{name}: result differs from oracle ({bad})")
+
+
+def check_close(name, got, want, tol):
+    err = (np.abs(got - want).max() if got.shape == want.shape and got.size
+           else 0.0)
+    if got.shape != want.shape or not np.isfinite(got).all() or err > tol:
+        raise AssertionError(f"{name}: result differs from oracle (max abs "
+                             f"err {err}, tolerance {tol})")
+    log(f"  {name}: max abs err {err:.3e} against the float64 oracle "
+        f"(tolerance {tol})")
+
+
+def attention_oracle(q, k, v, allow):
+    """float64 block-masked softmax attention (no fully masked rows)."""
+    sc = (q.astype(np.float64) @ k.astype(np.float64).T) / np.sqrt(q.shape[1])
+    sc = np.where(allow, sc, -np.inf)
+    p = np.exp(sc - sc.max(1, keepdims=True))
+    return (p / p.sum(1, keepdims=True)) @ v.astype(np.float64)
+
+
+def attention_pairs(kv_idx, bq, bkv, n_kvblk, causal):
+    """Allowed (query, key) pairs of one head under ``kv_idx``."""
+    pairs = 0
+    r = np.arange(bq)[:, None]
+    c = np.arange(bkv)[None, :]
+    for qi, row in enumerate(kv_idx):
+        for kb in row:
+            if 0 <= kb < n_kvblk:
+                pairs += (int((qi * bq + r >= kb * bkv + c).sum()) if causal
+                          else bq * bkv)
+    return pairs
 
 
 def oracle(expr, arrays):
@@ -174,10 +239,24 @@ def event_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def profiler_warmup():
+    """Launch a few spin kernels inside a fresh profile before the work it
+    measures: the profiler may miss the first device activities of a
+    session (call 3, PR 12, recorded no kernel of one profiled call).
+    Their events carry the name ``spin_kernel`` and are left out."""
+    import torch
+
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def profiled_device_ms(fn, match, reps=20):
     """Per-call device time of ``fn`` from torch.profiler's kernel events:
     (all kernels, the kernels whose name contains ``match``), or
-    (None, None) when the profiler recorded no device event."""
+    (None, None) when the profiler recorded no such kernel. Sums are
+    divided by the number of ``match`` kernels the profiler recorded, not
+    by ``reps``: it does not always record every launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,19 +264,25 @@ def profiled_device_ms(fn, match, reps=20):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profiler_warmup()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     total = mine = 0.0
+    recorded = 0
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or "spin_kernel" in evt.key):
             continue
         total += evt.self_device_time_total
         if match in evt.key:
             mine += evt.self_device_time_total
-    if not total:
+            recorded += evt.count
+    if not recorded:
         return None, None
-    return total / reps / 1e3, mine / reps / 1e3
+    if recorded != reps:
+        log(f"  profiler recorded {recorded} of {reps} {match} launches")
+    return total / recorded / 1e3, mine / recorded / 1e3
 
 
 def main() -> int:
@@ -215,6 +300,10 @@ def main() -> int:
                                                   fused_imr_workspace_plain)
     from repro_torch.kernels.scatter_workspace import scatter_workspace_plain
     from repro_torch.kernels.segment_reduce import segment_reduce_plain
+    from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
+                                                   bsr_flash_attention_plain)
+    from repro_torch.kernels.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
+    from repro_torch.kernels.spmm_bsr import spmm_bsr, spmm_bsr_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,7 +333,10 @@ def main() -> int:
     # can hold each kernel against its plain version at those shapes
     seen = {}
     wrappers = {scatter_workspace.__code__: "scatter_workspace",
-                segment_reduce.__code__: "segment_reduce"}
+                segment_reduce.__code__: "segment_reduce",
+                spmm_bsr.__code__: "spmm_bsr",
+                sddmm_bsr.__code__: "sddmm_bsr",
+                bsr_flash_attention.__code__: "bsr_attention"}
 
     def record_kernel_inputs(tag, fn):
         """Run ``fn`` once, keeping a copy of the arguments of every call
@@ -319,6 +411,7 @@ def main() -> int:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            profiler_warmup()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -328,7 +421,8 @@ def main() -> int:
             # kernel events only: the host ops that launched them report
             # the same device time again
             dev_us = evt.self_device_time_total
-            if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us:
+            if (evt.device_type == torch.autograd.DeviceType.CUDA and dev_us
+                    and "spin_kernel" not in evt.key):
                 rows.append((dev_us / 1e3, evt.count, evt.key))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
@@ -337,16 +431,17 @@ def main() -> int:
                 "top_kernels": [{"ms": ms, "count": n, "name": k[:80]}
                                 for ms, n, k in rows[:8]]}
 
-    def run_workload(tag, label, expr, fmts, order, dims, arrays, want):
+    def run_workload(tag, label, expr, fmts, order, dims, arrays, want,
+                     check=check_equal, reps=5):
         before = kops.launch_counts()
         eng = compile_expr(expr, Format(fmts), Schedule(loop_order=order),
                            dims)
         t0 = time.perf_counter()
         got = eng(arrays)
         first_ms = (time.perf_counter() - t0) * 1e3
-        check_equal(label, tree_to_dense(got), want)
-        ms = warm_ms(lambda: eng(arrays))
-        check_equal(label + " (warm)", tree_to_dense(eng(arrays)), want)
+        check(label, tree_to_dense(got), want)
+        ms = warm_ms(lambda: eng(arrays), reps)
+        check(label + " (warm)", tree_to_dense(eng(arrays)), want)
         record_kernel_inputs(tag, lambda: eng(arrays))
         host = host_profile(lambda: eng(arrays))
         prof = device_profile(lambda: eng(arrays))
@@ -358,7 +453,7 @@ def main() -> int:
                             "stats": dict(eng.stats)}
         idle = prof["idle_share"]
         log(f"[{tag}] {label}: first call {first_ms:.1f} ms, warm median "
-            f"{ms:.1f} ms over 5 calls; result nnz "
+            f"{ms:.1f} ms over {reps} calls; result nnz "
             f"{workloads[label]['result_nnz']}; launches {per_phase[tag]}")
         log(f"[{tag}] {label}: host (cProfile cumulative ms) " + ", ".join(
             f"{r['name']} {r['cum_ms']:.1f}" for r in host))
@@ -424,21 +519,125 @@ def main() -> int:
         if not any(per_phase[t][name] for t in ("c", "d", "d2", "e")):
             raise AssertionError(f"{name} never launched in (c)-(e)")
 
+    # -- (g)-(j) the block-sparse path at llama3.2-3b-bsr's widths ------------
+    # d_model 3072, d_ff 8192, 24 heads of 128, window 4096 tokens
+    bs, d_model, d_ff, tokens = 128, 3072, 8192, 4096
+    s_len, hd, heads, win = 8192, 128, 24, 32
+
+    def run_bsr(tag, label, kind, kernel, expr, fmts, dims, arrays, want,
+                check=check_equal):
+        kops.reset_launch_counts()
+        run_workload(tag, label, expr, fmts, tuple(dims), dims, arrays, want,
+                     check=check, reps=3)
+        st = workloads[label]["stats"]
+        if (st["kernel"] != kind or st["block_size"] != bs
+                or st["fallback_calls"] or per_phase[tag][kernel] < 1):
+            raise AssertionError(f"({tag}) {label}: stats {st}, launches "
+                                 f"{per_phase[tag]}")
+
+    # (g) block-pruned FFN up-projection: W1^T (d_ff x d_model) @ X^T
+    nbr, nbc = d_ff // bs, d_model // bs
+    keep = np.zeros(nbr * nbc, bool)
+    keep[rng.choice(nbr * nbc, nbr * nbc // 4, replace=False)] = True
+    w1t = (np.kron(keep.reshape(nbr, nbc), np.ones((bs, bs), np.int8))
+           * rng.integers(-3, 4, (d_ff, d_model), dtype=np.int8)
+           ).astype(np.float32)
+    xt = rng.integers(-3, 4, (d_model, tokens)).astype(np.float32)
+    want = w1t.astype(np.float64) @ xt.astype(np.float64)
+    log(f"[g] W1^T {d_ff} x {d_model}: {int(keep.sum())} of {keep.size} "
+        f"blocks kept; X^T {d_model} x {tokens}")
+    run_bsr("g", "SpMM W1^T X^T", "spmm", "spmm_bsr",
+            "x(i,k) = B(i,j) * C(j,k)", {"B": "bb", "C": "dd", "x": "dd"},
+            {"i": d_ff, "j": d_model, "k": tokens}, {"B": w1t, "C": xt},
+            want)
+    del w1t, xt, want
+
+    # (h) sampled attention scores under the causal sliding-window mask
+    n_win = s_len // bs
+    kv_win = kops.sliding_window_kv_idx(n_win, n_win, win)
+    allow_blk = np.zeros((n_win, n_win), bool)
+    qb = np.repeat(np.arange(n_win), win)
+    live = kv_win.ravel() < n_win
+    allow_blk[qb[live], kv_win.ravel()[live]] = True
+    mask = (np.kron(allow_blk, np.ones((bs, bs), np.int8))
+            * rng.integers(1, 4, (s_len, s_len), dtype=np.int8)
+            ).astype(np.float32)
+    a_q = rng.integers(-3, 4, (s_len, hd)).astype(np.float32)
+    c_k = rng.integers(-3, 4, (s_len, hd)).astype(np.float32)
+    want = mask.astype(np.float64) * (a_q.astype(np.float64)
+                                      @ c_k.astype(np.float64).T)
+    log(f"[h] M {s_len} x {s_len}: {int(allow_blk.sum())} of "
+        f"{allow_blk.size} blocks")
+    run_bsr("h", "SDDMM M*(Q K^T)", "sddmm", "sddmm_bsr",
+            "X(i,j) = M(i,j) * A(i,k) * C(j,k)", {"M": "bb", "X": "dd"},
+            {"i": s_len, "j": s_len, "k": hd},
+            {"M": mask, "A": a_q, "C": c_k}, want)
+    del a_q, c_k, want
+
+    # (i) one head of llama3.2-3b-bsr through the attention pattern
+    qkv = {t: rng.standard_normal((s_len, hd)).astype(np.float32)
+           for t in "QKV"}
+    allow = np.kron(allow_blk, np.ones((bs, bs), bool))
+    want = attention_oracle(qkv["Q"], qkv["K"], qkv["V"], allow)
+    del allow
+    run_bsr("i", "attention 1 head", "attention", "bsr_attention",
+            "O(i,d) = M(i,j) * Q(i,e) * K(j,e) * V(j,d)",
+            {"M": "bb", "Q": "dd", "K": "dd", "V": "dd", "O": "dd"},
+            {"i": s_len, "j": s_len, "e": hd, "d": hd},
+            {"M": mask, **qkv}, want,
+            check=lambda n, got, w: check_close(n, got, w, ATTN_TOL))
+    del mask, qkv, want
+
+    # (j) the attention kernel on all heads, called directly
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q_all, k_all, v_all = (torch.randn((heads, s_len, hd), device="cuda",
+                                       generator=g) for _ in range(3))
+    kv_all = torch.as_tensor(kv_win, device="cuda")
+    kops.reset_launch_counts()
+    outs = {c: bsr_flash_attention(q_all, k_all, v_all, kv_all, bq=bs,
+                                   bkv=bs, causal=c) for c in (False, True)}
+    torch.cuda.synchronize()
+    per_phase["j"] = kops.launch_counts()
+    if per_phase["j"]["bsr_attention"] != 2:
+        raise AssertionError(f"(j) launches {per_phase['j']}")
+    for causal, out in outs.items():
+        if out.shape != q_all.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"(j) causal={causal}: not finite")
+    log(f"[j] bsr_flash_attention on {heads} heads x {s_len} x {hd}, "
+        f"causal off and on: finite; launches {per_phase['j']}")
+    del outs
+
     # -- (f) kernels against their plain versions ----------------------------
     # each kernel is timed at the last input a warm (plan-cached) call of
     # each workload handed it; the kernels line carries the largest of
     # those shapes
     kernels, measured = [], []
 
-    def report(name, launches, kernel, plain, library, nbytes, nops, where):
-        out_k = kernel()
-        out_p = plain()
+    def held(name, out_k, out_p, where, tol=0.0):
+        """Max abs error of a kernel's output against its plain version's;
+        raises unless every element is within tol + tol * |plain|."""
         torch.cuda.synchronize()
-        err = float((out_k.double() - out_p.double()).abs().max()) \
-            if out_k.numel() else 0.0
-        if out_k.shape != out_p.shape or err != 0.0:
+        diff = (out_k.double() - out_p.double()).abs()
+        err = float(diff.max()) if out_k.numel() else 0.0
+        if (out_k.shape != out_p.shape or not torch.isfinite(out_k).all()
+                or bool((diff > tol + tol * out_p.double().abs()).any())):
             raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version at {where} (max abs err {err})")
+                                 f"version at {where} (max abs err {err}, "
+                                 f"tolerance {tol})")
+        return err
+
+    def timed_library(name, library):
+        """Time one PyTorch library call, or None where it does not run."""
+        try:
+            library()
+            return event_ms(library)
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            log(f"[f] {name}: library call not timed ({exc})"[:300])
+            return None
+
+    def report(name, launches, kernel, plain, library, nbytes, nops, where,
+               tol=0.0):
+        err = held(name, kernel(), plain(), where, tol)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = nops / FP32_OPS_PER_S
         row = {"name": name, "route": "cuda",
@@ -447,19 +646,25 @@ def main() -> int:
                "max_abs_err": err, "ms": event_ms(kernel),
                "plain_ms": event_ms(plain), "bound_ms": max(t_bytes, t_ops)
                * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else
-               "operations", "library_ms": event_ms(library),
+               "operations", "library_ms": timed_library(name, library),
                "shape": where, "bytes": nbytes}
         # CUDA events time the wrapper call as the engine pays it, host
         # launch gaps included; the profiler splits out device time
         row["device_ms"], row["kernel_device_ms"] = profiled_device_ms(
             kernel, name)          # each kernel's symbol contains its name
+        # the same events again, after the profiled run: a spread between
+        # the two readings is the card's, not the kernel's
+        row["ms_again"] = event_ms(kernel)
         measured.append(row)
         dev = ("device not measured" if row["device_ms"] is None else
                f"device {row['device_ms']:.4f}, of it the kernel "
                f"{row['kernel_device_ms']:.4f}")
-        log(f"[f] {name} at {where}: ms {row['ms']:.4f} ({dev}) plain_ms "
-            f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-            f"bound_ms {row['bound_ms']:.4f} max_abs_err {err}")
+        lib = ("not timed" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}")
+        log(f"[f] {name} at {where}: ms {row['ms']:.4f} (again after the "
+            f"profile {row['ms_again']:.4f}; {dev}) plain_ms "
+            f"{row['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) max_abs_err {err}")
         return row
 
     for name in ("scatter_workspace", "segment_reduce"):
@@ -559,6 +764,113 @@ def main() -> int:
            na * 3,
            f"NA={na} NB={nb} slots={slots}"))
 
+    # the block-sparse kernels, at the inputs (g)-(j) gave them
+    kw = seen["g"]["spmm_bsr"][-1]
+    bm, ci, bp, cc = kw["blk_map"], kw["col_idx"], kw["blocks"], kw["c"]
+    n_brow, bsz, nnzb = bm.shape[0], bp.shape[1], bp.shape[0] - 1
+    live = bm < nnzb
+    crow = torch.zeros(n_brow + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = live.sum(1).cumsum(0)
+    bsr_w = torch.sparse_bsr_tensor(crow, ci[live].long(),
+                                    bp[bm[live].long()],
+                                    size=(n_brow * bsz, cc.shape[0]))
+    n_live = int(live.sum())
+    kernels.append(report(
+        "spmm_bsr", per_phase["g"]["spmm_bsr"],
+        lambda: spmm_bsr(bm, ci, bp, cc),
+        lambda: spmm_bsr_plain(bm, ci, bp, cc),
+        lambda: torch.sparse.mm(bsr_w, cc),
+        2 * bm.numel() * 4 + bp.numel() * 4 + cc.numel() * 4
+        + n_brow * bsz * cc.shape[1] * 4,
+        2 * n_live * bsz * bsz * cc.shape[1],
+        f"(g) n_brow={n_brow} max_nnz={bm.shape[1]} nnzb={nnzb} bs={bsz} "
+        f"K={cc.shape[0]} N={cc.shape[1]}"))
+    del bsr_w
+
+    kw = seen["h"]["sddmm_bsr"][-1]
+    sr, sc, sa, sb, sbs = kw["rows"], kw["cols"], kw["a"], kw["b"], kw["bs"]
+    a3 = sa.view(-1, sbs, sa.shape[1])
+    b3 = sb.view(-1, sbs, sb.shape[1])
+    nnzb = sr.numel()
+    kernels.append(report(
+        "sddmm_bsr", per_phase["h"]["sddmm_bsr"],
+        lambda: sddmm_bsr(sr, sc, sa, sb, sbs),
+        lambda: sddmm_bsr_plain(sr, sc, sa, sb, sbs),
+        lambda: torch.bmm(a3[sr], b3[sc].transpose(1, 2)),
+        2 * nnzb * 4 + (sa.numel() + sb.numel() + nnzb * sbs * sbs) * 4,
+        2 * nnzb * sbs * sbs * sa.shape[1],
+        f"(h) nnzb={nnzb} bs={sbs} K={sa.shape[1]}"))
+
+    def attention_mask(kv, n_q, n_kv, causal):
+        """Dense boolean (S_q, S_kv) mask of a kv_idx (for the library)."""
+        blk = torch.zeros((n_q, n_kv + 1), dtype=torch.bool, device="cuda")
+        blk.scatter_(1, kv.long().clamp(0, n_kv), True)
+        full = blk[:, :n_kv].repeat_interleave(bs, 0).repeat_interleave(
+            bs, 1)
+        return full.tril() if causal else full
+
+    attn_launches = (per_phase["i"]["bsr_attention"]
+                     + per_phase["j"]["bsr_attention"])
+    for causal in (False, True):
+        pairs = heads * attention_pairs(kv_win, bs, bs, n_win, causal)
+        dense_mask = attention_mask(kv_all, n_win, n_win, causal)
+        row = report(
+            "bsr_attention", attn_launches,
+            lambda: bsr_flash_attention(q_all, k_all, v_all, kv_all, bq=bs,
+                                        bkv=bs, causal=causal),
+            lambda: bsr_flash_attention_plain(q_all, k_all, v_all, kv_all,
+                                              bq=bs, bkv=bs, causal=causal),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q_all[None], k_all[None], v_all[None], attn_mask=dense_mask),
+            4 * q_all.numel() * 4 + kv_all.numel() * 4, 4 * hd * pairs,
+            f"(j) BH={heads} S={s_len} D={hd} causal={causal}",
+            tol=KERNEL_TOL["float32"])
+        del dense_mask
+        if not causal:
+            kernels.append(row)
+
+    # the path's own head (i): a fully masked q block, and bfloat16
+    kw = seen["i"]["bsr_attention"][-1]
+    qi_, ki_, vi_, idx_i = kw["q"], kw["k"], kw["v"], kw["kv_idx"]
+    idx_m = idx_i.clone()
+    idx_m[0] = ki_.shape[1] // bs                     # every slot masked
+    out_m = bsr_flash_attention(qi_, ki_, vi_, idx_m, bq=bs, bkv=bs)
+    torch.cuda.synchronize()
+    if out_m[:, :bs].count_nonzero():
+        raise AssertionError("bsr_attention: a fully masked q block is not "
+                             "zeros")
+    err_m = held("bsr_attention", out_m,
+                 bsr_flash_attention_plain(qi_, ki_, vi_, idx_m, bq=bs,
+                                           bkv=bs),
+                 "(i) with q block 0 masked", KERNEL_TOL["float32"])
+    q16, k16, v16 = (x.bfloat16() for x in (qi_, ki_, vi_))
+    err_16 = held("bsr_attention",
+                  bsr_flash_attention(q16, k16, v16, idx_i, bq=bs, bkv=bs),
+                  bsr_flash_attention_plain(q16, k16, v16, idx_i, bq=bs,
+                                            bkv=bs),
+                  "(i) in bfloat16", KERNEL_TOL["bfloat16"])
+    log(f"[f] bsr_attention at (i): q block 0 fully masked gives zeros "
+        f"(max abs err {err_m} elsewhere); bfloat16 max abs err {err_16}")
+
+    def one_head():
+        return bsr_flash_attention(qi_, ki_, vi_, idx_i, bq=bs, bkv=bs)
+
+    dev_i, kern_i = profiled_device_ms(one_head, "bsr_attention")
+    bound_i = (4 * hd * attention_pairs(kv_win, bs, bs, n_win, False)
+               / FP32_OPS_PER_S * 1e3)
+    log(f"[f] bsr_attention at (i) BH=1 S={qi_.shape[1]} D={qi_.shape[2]}: "
+        f"ms {event_ms(one_head):.4f}, device " + (
+            "not measured" if dev_i is None else
+            f"{dev_i:.4f}, of it the kernel {kern_i:.4f}")
+        + f", bound_ms {bound_i:.4f}")
+    for name, fn, args in (
+            ("spmm_bsr", spmm_bsr, (bm, ci, bp.bfloat16(), cc.bfloat16())),
+            ("sddmm_bsr", sddmm_bsr, (sr, sc, sa.bfloat16(), sb.bfloat16(),
+                                      sbs))):
+        plain = spmm_bsr_plain if name == "spmm_bsr" else sddmm_bsr_plain
+        err = held(name, fn(*args), plain(*args), "bfloat16")
+        log(f"[f] {name} in bfloat16 at the same shape: max abs err {err}")
+
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                "workloads": workloads, "launches_by_phase": per_phase,
@@ -570,7 +882,8 @@ def main() -> int:
         log(f"[workload] {label}: warm {w['warm_ms']:.3f} ms")
     log(json.dumps({"kernels": [
         {k: v for k, v in r.items()
-         if k not in ("shape", "bytes", "device_ms", "kernel_device_ms")}
+         if k not in ("shape", "bytes", "device_ms", "kernel_device_ms",
+                      "ms_again")}
         for r in kernels]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

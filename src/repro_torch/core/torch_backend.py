@@ -36,10 +36,15 @@ Two execution modes share the block handlers:
   The sizes each stream really needed come back to the host in ONE
   transfer per run, and a capacity overflow grows the plan and re-runs.
 
+``b``-format (block-sparse) operands take the BSR bridge: ``compile_expr``
+routes an expression that ``bsr_bridge.bsr_pattern`` recognizes (SpMM,
+SDDMM, block attention) to a ``BsrEngine`` on its three hand-written
+kernels; any other ``b``-format expression goes on to ``CompiledExpr``,
+which refuses ``b`` levels as the reference's does.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md slice: ``split``/``parallelize`` lanes and batches, tiles and
-``mem_budget``, ``schedule="auto"``, programs, and ``b``-format (BSR)
-operands.
+``mem_budget``, ``schedule="auto"``, and programs.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import torch
 from ..kernels import ops as kops
 from . import coord_ops as co
 from . import graph as g
+from .bsr_bridge import BsrEngine, bsr_pattern
 from .custard import expr_cache_key, lower
 from .einsum import Assignment, parse
 from .fibertree import BITVECTOR, COMPRESSED, DENSE, FiberTree, canonical_tree
@@ -65,8 +71,6 @@ _LANES_SLICE = "ROADMAP.md, still to port #1: split, lanes and batches"
 _AUTO_SLICE = ("ROADMAP.md, still to port #2: `auto` with simulator and "
                "autoschedule")
 _TILES_SLICE = "ROADMAP.md, still to port #3: tiles"
-_BSR_SLICE = ("ROADMAP.md, still to port #5: the BSR engine and its 3 "
-              "kernels")
 
 
 @dataclasses.dataclass
@@ -628,6 +632,7 @@ def _tensors_from_flat_arrays(flat, level_meta, device
 
 
 _COMPILED: Dict[Tuple, "CompiledExpr"] = {}
+_BSR: Dict[Tuple, BsrEngine] = {}
 
 
 def _refuse_unported(schedule: Schedule) -> None:
@@ -637,10 +642,6 @@ def _refuse_unported(schedule: Schedule) -> None:
     if schedule.tile:
         raise NotImplementedError(
             f"tiled schedules are not ported yet ({_TILES_SLICE})")
-
-
-def _has_block_format(fmt: Format) -> bool:
-    return "b" in fmt.default or any("b" in s for s in fmt.formats.values())
 
 
 class CompiledExpr:
@@ -892,7 +893,7 @@ class CompiledExpr:
 
 def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
                  use_kernels: bool = True, device=None, mem_budget=None
-                 ) -> CompiledExpr:
+                 ) -> "CompiledExpr | BsrEngine":
     """Compile an expression once into a plan-cached engine.
 
     Args:
@@ -909,7 +910,10 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
     Returns:
         The process-wide engine for this configuration: repeated calls
         with the same (expression, formats, schedule, dims, use_kernels,
-        device) return the SAME engine, so its plans are shared.
+        device) return the SAME engine, so its plans are shared. A
+        block-sparse contraction that ``bsr_pattern`` recognizes gets a
+        ``BsrEngine``, shared by (expression, formats, schedule, dims,
+        device).
 
     >>> import numpy as np
     >>> from repro_torch.core.schedule import Format, Schedule
@@ -920,23 +924,32 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
     >>> eng({"B": np.eye(2, 3), "c": np.ones(3)}).to_dense()
     array([1., 1.])
     """
-    if mem_budget is not None:
-        raise NotImplementedError(
-            f"mem_budget routes through tiles, not ported yet "
-            f"({_TILES_SLICE})")
     if isinstance(schedule, str):
         if schedule != "auto":
             raise ValueError(
                 f"schedule must be a Schedule or 'auto', got {schedule!r}")
         raise NotImplementedError(
             f"schedule='auto' is not ported yet ({_AUTO_SLICE})")
-    if _has_block_format(fmt):
-        raise NotImplementedError(
-            f"b-format operands route to the BSR engine, not ported yet "
-            f"({_BSR_SLICE})")
-    _refuse_unported(schedule)
     dev = co.resolve_device(device)
     assign = parse(expr) if isinstance(expr, str) else expr
+
+    # recognized block-sparse contractions run on the BSR kernels end to
+    # end instead of the streaming engine (core/bsr_bridge.py); the engine
+    # ignores use_kernels, as the reference's does
+    pat = bsr_pattern(assign, fmt)
+    if pat is not None:
+        bkey = (expr_cache_key(assign, fmt, schedule, dims), str(dev))
+        beng = _BSR.get(bkey)
+        if beng is None:
+            beng = BsrEngine(assign, fmt, dims, pat, device=dev)
+            _BSR[bkey] = beng
+        return beng
+
+    if mem_budget is not None:
+        raise NotImplementedError(
+            f"mem_budget routes through tiles, not ported yet "
+            f"({_TILES_SLICE})")
+    _refuse_unported(schedule)
     key = (expr_cache_key(assign, fmt, schedule, dims), use_kernels, str(dev))
     eng = _COMPILED.get(key)
     if eng is None:
@@ -948,6 +961,7 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
 
 def clear_compile_cache() -> None:
     _COMPILED.clear()
+    _BSR.clear()
 
 
 def execute_graph(graph_: g.Graph, tensors: Dict[str, FiberTree],

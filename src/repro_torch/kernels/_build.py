@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # every entry returns cudaGetLastError() after its launch
 _SIGNATURES = {
     "sam_scatter_workspace_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
@@ -36,6 +37,14 @@ _SIGNATURES = {
     "sam_segment_reduce_f64": [_P, _P, _P, _LL, _I, _I, _P],
     "sam_fused_imr_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
     "sam_fused_imr_f64": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
+    "sam_spmm_bsr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
+    "sam_spmm_bsr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
+    "sam_sddmm_bsr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
+    "sam_sddmm_bsr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
+    "sam_bsr_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _P],
+    "sam_bsr_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _P],
 }
 
 _LOCK = threading.Lock()

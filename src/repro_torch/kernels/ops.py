@@ -20,6 +20,12 @@ compiled engine resolves its hot primitives here:
   coo_to_levels        — the program-fusion COO→levels handoff; fallback
       only until programs are ported.
 
+The block-sparse kernels (``spmm_bsr``, ``sddmm_bsr``,
+``bsr_flash_attention``) are called by ``core/bsr_bridge.BsrEngine``
+directly, not through the table. This module also keeps the port's numpy
+copies of the reference's BCSR bookkeeping (``bsr_from_block_coords``,
+``sliding_window_kv_idx``), because the reference module imports JAX.
+
 Entries under ``"cuda"`` never return the plain PyTorch result for a CUDA
 tensor: they launch a kernel or raise. (A CPU tensor handed to them takes
 each kernel wrapper's plain version, which is how the CPU tests exercise
@@ -30,13 +36,26 @@ instantiation.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from ..core import coord_ops as _co
 from . import _build
+from .bsr_attention import bsr_flash_attention
 from .fused_stream import fused_imr_workspace
 from .scatter_workspace import scatter_workspace
+from .sddmm_bsr import sddmm_bsr
 from .segment_reduce import segment_reduce
+from .spmm_bsr import spmm_bsr
+
+_COUNTED = {"scatter_workspace": scatter_workspace,
+            "segment_reduce": segment_reduce,
+            "fused_imr": fused_imr_workspace,
+            "spmm_bsr": spmm_bsr,
+            "sddmm_bsr": sddmm_bsr,
+            "bsr_attention": bsr_flash_attention}
 
 
 def _keyed_segment_sum_cuda(vals, seg_ids, num_segments: int):
@@ -160,11 +179,55 @@ def register_primitive(name: str, backend: str, impl) -> None:
 
 def launch_counts() -> dict:
     """Launch counters of every kernel wrapper, by kernel name."""
-    return {"scatter_workspace": scatter_workspace.launches,
-            "segment_reduce": segment_reduce.launches,
-            "fused_imr": fused_imr_workspace.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in (scatter_workspace, segment_reduce, fused_imr_workspace):
+    for fn in _COUNTED.values():
         fn.launches = 0
+
+
+# -- BCSR bookkeeping (numpy copies of ``repro/kernels/ops.py``) -------------
+
+def bsr_from_block_coords(rows: np.ndarray, cols: np.ndarray,
+                          blocks: np.ndarray, n_brow: int
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """COO block coordinates -> padded per-row slot maps for spmm_bsr.
+
+    Returns (blk_map, col_idx, blocks_padded); pad slots point at the
+    appended all-zero block.
+    """
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    nnzb = len(rows)
+    counts = np.bincount(rows, minlength=n_brow)
+    max_nnz = max(int(counts.max(initial=0)), 1)
+    blk_map = np.full((n_brow, max_nnz), nnzb, dtype=np.int32)
+    col_idx = np.zeros((n_brow, max_nnz), dtype=np.int32)
+    if nnzb:
+        # slot of block b = its rank within its row, in input order: a
+        # stable sort by row groups the blocks, and position-minus-
+        # row-start inside the sorted order is the rank
+        order = np.argsort(rows, kind="stable")
+        row_start = np.zeros(n_brow, dtype=np.int64)
+        row_start[1:] = np.cumsum(counts)[:-1]
+        slot = np.empty(nnzb, dtype=np.int64)
+        slot[order] = np.arange(nnzb) - row_start[rows[order]]
+        blk_map[rows, slot] = np.arange(nnzb)
+        col_idx[rows, slot] = cols
+    zeros = np.zeros((1,) + blocks.shape[1:], blocks.dtype)
+    return blk_map, col_idx, np.concatenate([blocks, zeros], axis=0)
+
+
+def sliding_window_kv_idx(n_qblk: int, n_kvblk: int, window_blocks: int,
+                          causal: bool = True) -> np.ndarray:
+    """BCSR mask for sliding-window attention: each q block attends to the
+    ``window_blocks`` kv blocks at/before it. Padded with the
+    out-of-range sentinel ``n_kvblk``."""
+    idx = np.full((n_qblk, window_blocks), n_kvblk, dtype=np.int32)
+    for qi in range(n_qblk):
+        hi = qi if causal else min(qi + window_blocks // 2, n_kvblk - 1)
+        lo = max(0, hi - window_blocks + 1)
+        w = list(range(lo, hi + 1))
+        idx[qi, :len(w)] = w
+    return idx

@@ -1,10 +1,13 @@
 """The CUDA kernels and the engine on the card (skipped without a GPU).
 
 Each kernel's wrapper on CUDA tensors must equal its plain PyTorch version
-on the same inputs, exactly (integer-valued data: any atomic order is
-exact), and must count one launch. The engine on CUDA must return the
-same FiberTree as the engine on the CPU. This file needs no JAX, so it
-runs on a GPU machine as it is:
+on the same inputs, exactly on integer-valued data (any summation order is
+exact there), and must count one launch. The block-sparse kernels are
+also held at block sizes 1 to 128, in bfloat16, with ``causal``, with a
+fully masked q block (zeros), and at extents that are not multiples of
+128; attention on random data within a stated tolerance. The engines on
+CUDA must return the same FiberTree as on the CPU. This file needs no JAX,
+so it runs on a GPU machine as it is:
 
     python -m pytest -q tests/test_torch_gpu.py
 """
@@ -12,15 +15,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.bsr_bridge import BsrEngine
 from repro_torch.core.schedule import Format, Schedule
-from repro_torch.core.torch_backend import CompiledExpr
+from repro_torch.core.torch_backend import CompiledExpr, compile_expr
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
+                                               bsr_flash_attention_plain)
 from repro_torch.kernels.fused_stream import (fused_imr_workspace,
                                               fused_imr_workspace_plain)
 from repro_torch.kernels.scatter_workspace import (scatter_workspace,
                                                    scatter_workspace_plain)
+from repro_torch.kernels.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
 from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                 segment_reduce_plain)
+from repro_torch.kernels.spmm_bsr import spmm_bsr, spmm_bsr_plain
 
 PAD_KEY = torch.iinfo(torch.int64).max
 
@@ -117,3 +125,124 @@ def test_engine_on_the_card_equals_the_cpu(cuda, expr, order, fmts):
         assert sum(kops.launch_counts().values()) > 0
     want = CompiledExpr(expr, Format(fmts), sch, dims, device="cpu")(arrays)
     np.testing.assert_array_equal(got.to_dense(), want.to_dense())
+
+
+# -- the block-sparse kernels -------------------------------------------------
+
+def _ints(rng, shape, dtype):
+    return torch.as_tensor(rng.integers(-3, 4, shape).astype(np.float32)
+                           ).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,n,dtype", [
+    (1, 200, torch.float32), (8, 96, torch.float32),
+    (64, 256, torch.float32), (128, 300, torch.float32),
+    (128, 128, torch.bfloat16), (8, 40, torch.bfloat16)])
+def test_spmm_bsr_equals_plain(cuda, bs, n, dtype):
+    rng = np.random.default_rng(bs + n)
+    n_brow, n_bcol = max(2, 256 // bs), max(3, 384 // bs)
+    keep = rng.random((n_brow, n_bcol)) < 0.3
+    keep[1] = False                             # a block row of pad slots
+    rows, cols = np.nonzero(keep)
+    bm, ci, bp = kops.bsr_from_block_coords(
+        rows, cols, np.zeros((len(rows), bs, bs), np.float32), n_brow)
+    args = [torch.as_tensor(bm), torch.as_tensor(ci),
+            _ints(rng, bp.shape, dtype), _ints(rng, (n_bcol * bs, n), dtype)]
+    args[2][-1] = 0                             # the appended zero block
+    before = spmm_bsr.launches
+    got = spmm_bsr(*[a.to(cuda) for a in args])
+    assert spmm_bsr.launches == before + 1
+    want = spmm_bsr_plain(*args)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,k,dtype", [
+    (1, 40, torch.float32), (8, 72, torch.float32),
+    (64, 128, torch.float32), (128, 200, torch.float32),
+    (128, 64, torch.bfloat16), (8, 24, torch.bfloat16)])
+def test_sddmm_bsr_equals_plain(cuda, bs, k, dtype):
+    rng = np.random.default_rng(bs + k)
+    m_blk, n_blk = max(2, 384 // bs), max(3, 256 // bs)
+    rows, cols = np.nonzero(rng.random((m_blk, n_blk)) < 0.4)
+    args = [torch.as_tensor(rows.astype(np.int32)),
+            torch.as_tensor(cols.astype(np.int32)),
+            _ints(rng, (m_blk * bs, k), dtype),
+            _ints(rng, (n_blk * bs, k), dtype)]
+    before = sddmm_bsr.launches
+    got = sddmm_bsr(*[a.to(cuda) for a in args], bs)
+    assert sddmm_bsr.launches == before + 1
+    want = sddmm_bsr_plain(*args, bs)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,d,causal,dtype", [
+    (1, 32, False, torch.float32), (8, 64, True, torch.float32),
+    (64, 128, False, torch.float32), (128, 128, True, torch.float32),
+    (128, 100, False, torch.float32), (64, 256, True, torch.float32),
+    (128, 128, True, torch.bfloat16), (8, 64, False, torch.bfloat16)])
+def test_bsr_attention_equals_plain(cuda, bs, d, causal, dtype):
+    rng = np.random.default_rng(bs + d)
+    bh, n_blk = 2, max(4, 512 // bs)
+    s = n_blk * bs
+    kv_idx = kops.sliding_window_kv_idx(n_blk, n_blk, 3, causal=causal)
+    kv_idx[2] = n_blk                           # a fully masked q block
+    q, k, v = (torch.as_tensor(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dtype) for _ in range(3))
+    before = bsr_flash_attention.launches
+    got = bsr_flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                              torch.as_tensor(kv_idx).to(cuda), bq=bs,
+                              bkv=bs, causal=causal).cpu()
+    assert bsr_flash_attention.launches == before + 1
+    want = bsr_flash_attention_plain(q, k, v, torch.as_tensor(kv_idx),
+                                     bq=bs, bkv=bs, causal=causal)
+    assert got.dtype == dtype
+    assert not got[:, 2 * bs:3 * bs].any()
+    # float32: summation order only; bfloat16: one rounding of the output
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["spmm", "sddmm", "attention"])
+def test_bsr_engine_on_the_card_equals_the_cpu(cuda, kind):
+    rng = np.random.default_rng(7)
+    n, e = 256, 64
+    keep = np.kron(np.tril(np.ones((4, 4))), np.ones((64, 64)))
+    if kind == "spmm":
+        expr, fmts = "x(i,k) = B(i,j) * C(j,k)", {"B": "bb", "x": "dd"}
+        dims = {"i": n, "j": n, "k": 96}
+        arrays = {"B": keep * rng.integers(-3, 4, (n, n)),
+                  "C": rng.integers(-3, 4, (n, 96))}
+    elif kind == "sddmm":
+        expr = "X(i,j) = M(i,j) * A(i,k) * C(j,k)"
+        fmts, dims = {"M": "bb", "X": "dd"}, {"i": n, "j": n, "k": e}
+        arrays = {"M": keep * rng.integers(1, 4, (n, n)),
+                  "A": rng.integers(-3, 4, (n, e)),
+                  "C": rng.integers(-3, 4, (n, e))}
+    else:
+        expr = "O(i,d) = M(i,j) * Q(i,e) * K(j,e) * V(j,d)"
+        fmts, dims = {"M": "bb", "O": "dd"}, {"i": n, "j": n, "e": e, "d": e}
+        arrays = {"M": keep, **{t: rng.standard_normal((n, e))
+                                for t in "QKV"}}
+    arrays = {t: a.astype(np.float32) for t, a in arrays.items()}
+    sch = Schedule(loop_order=tuple(dims))
+    eng = compile_expr(expr, Format(fmts), sch, dims)
+    assert isinstance(eng, BsrEngine) and eng.device.type == "cuda"
+    kops.reset_launch_counts()
+    got = eng(arrays).to_dense()
+    name = {"spmm": "spmm_bsr", "sddmm": "sddmm_bsr",
+            "attention": "bsr_attention"}[kind]
+    assert kops.launch_counts()[name] == 1
+    # SpMM and SDDMM block at the largest power of two dividing the
+    # extents (capped at 128); attention at the mask's uniform blocks
+    assert eng.stats["fallback_calls"] == 0
+    assert eng.stats["block_size"] == (64 if kind == "attention" else 128)
+    want = compile_expr(expr, Format(fmts), sch, dims,
+                        device="cpu")(arrays).to_dense()
+    if kind == "attention":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_array_equal(got, want)

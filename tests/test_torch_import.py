@@ -43,8 +43,10 @@ def _env():
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.core.torch_backend" in mods
-    assert "repro_torch.kernels.ops" in mods
+    assert {"repro_torch.core.torch_backend", "repro_torch.kernels.ops",
+            "repro_torch.core.bsr_bridge", "repro_torch.kernels.spmm_bsr",
+            "repro_torch.kernels.sddmm_bsr",
+            "repro_torch.kernels.bsr_attention"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -92,6 +94,9 @@ def _entry_calls():
     return {
         "compile_expr": lambda: compile_expr("x(i) = B(i,j) * c(j)", fmt,
                                              sch, dims),
+        "compile_expr_bsr": lambda: compile_expr(
+            "x(i,k) = B(i,j) * C(j,k)", Format({"B": "bb"}),
+            Schedule(loop_order=("i", "j", "k")), {"i": 2, "j": 2, "k": 2}),
         "CompiledExpr": lambda: CompiledExpr("x(i) = B(i,j) * c(j)", fmt,
                                              sch, dims),
         "execute_expr": lambda: execute_expr("x(i) = B(i,j) * c(j)", fmt,
@@ -105,9 +110,10 @@ def _entry_calls():
     }
 
 
-@pytest.mark.parametrize("entry", ["compile_expr", "CompiledExpr",
-                                   "execute_expr", "execute_graph",
-                                   "sam_primitive", "accumulate_coo"])
+@pytest.mark.parametrize("entry", ["compile_expr", "compile_expr_bsr",
+                                   "CompiledExpr", "execute_expr",
+                                   "execute_graph", "sam_primitive",
+                                   "accumulate_coo"])
 def test_entry_points_refuse_without_gpu(entry):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

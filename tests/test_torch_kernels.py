@@ -311,15 +311,27 @@ def test_cpu_tensors_never_launch():
                                   key_bound=bound)
     kops._mul_reduce_cuda(t(keys), t(vals), t(vals), t(valid), 48,
                           key_bound=co.DENSE_REDUCE_BOUND + 1)
-    assert kops.launch_counts() == {"scatter_workspace": 0,
-                                    "segment_reduce": 0, "fused_imr": 0}
+    # the block-sparse wrappers on CPU tensors run their plain versions
+    blk = torch.ones((2, 2, 2))
+    kops.spmm_bsr(torch.zeros((1, 1), dtype=torch.int32),
+                  torch.zeros((1, 1), dtype=torch.int32), blk, torch.ones(2, 3))
+    kops.sddmm_bsr(torch.zeros(1, dtype=torch.int32),
+                   torch.zeros(1, dtype=torch.int32), torch.ones(2, 3),
+                   torch.ones(2, 3), 2)
+    q = torch.ones((1, 2, 4))
+    kops.bsr_flash_attention(q, q, q, torch.zeros((1, 1), dtype=torch.int32),
+                             bq=2, bkv=2)
+    assert kops.launch_counts() == {
+        "scatter_workspace": 0, "segment_reduce": 0, "fused_imr": 0,
+        "spmm_bsr": 0, "sddmm_bsr": 0, "bsr_attention": 0}
 
 
 def test_build_is_lazy_and_keyed_by_source_hash():
     assert _build._LIB is None               # importing built nothing
     names = [p.name for p in _build.sources()]
-    assert names == ["fused_stream.cu", "scatter_workspace.cu",
-                     "segment_reduce.cu"]
+    assert names == ["bsr_attention.cu", "fused_stream.cu",
+                     "scatter_workspace.cu", "sddmm_bsr.cu",
+                     "segment_reduce.cu", "spmm_bsr.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libsam_kernels_")
