@@ -5,9 +5,11 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
     python3 chip_smoke.py
 
-Drives the port's main path (``repro_torch.core.torch_backend.compile_expr``
--> ``CompiledExpr.__call__``) end to end on the card and checks every
-result against a float64 numpy/scipy oracle. Operands are integer valued
+Drives the port's paths end to end on the card: expressions
+(``repro_torch.core.torch_backend.compile_expr`` -> ``CompiledExpr`` or
+``BsrEngine``) and fused programs (``compile_program`` ->
+``CompiledProgram``), and checks every result against a float64
+numpy/scipy oracle. Operands are integer valued
 (1-8) from a fixed numpy seed, so every float32 partial sum is an exact
 integer and results must EQUAL the oracle whatever order the atomics take.
 
@@ -35,20 +37,36 @@ Phases:
       (bsr_attention), within ATTN_TOL of a float64 oracle;
   (j) bsr_flash_attention called directly on all 24 heads, with
       kv_idx = sliding_window_kv_idx(64, 64, 32), causal off and on;
-  (f) every kernel against its plain PyTorch version at the shapes (c)-(j)
+  (k) the fused program of graph attention at ogbn-arxiv's widths (128
+      features; 16384 nodes, 14 edges a row drawn uniformly), through
+      compile_program -> CompiledProgram:
+        T(i,j) = B(i,j) * C(i,f) * D(j,f)   (SDDMM: scores on the edges)
+        A(i,g) = T(i,j) * E(j,g)            (SpMM: aggregate neighbours)
+      B and T cc, C, D, E and A dd; T fuses, so its COO result becomes
+      on-device (seg, crd) levels through coo_to_levels; integers |v| <= 3,
+      so A must EQUAL a sparse float64 oracle;
+  (k2) the same program with fuse=False: T is materialized on the host
+      between two CompiledExpr units; A must equal (k)'s bit for bit;
+  (l) coo_to_levels called directly on a 3-level COO, dims
+      [4096, 2**25, 8], 2**24 unique sorted keys plus 1024 pad rows, at the
+      engine's bucketed capacities and with every capacity half the
+      level's count (overflow), and on an empty and a one-row input;
+  (f) every kernel against its plain PyTorch version at the shapes (c)-(k)
       gave it, and fused_imr through the intersect_mul_reduce entry on
       sorted streams with NA = 4M, NB = 1M, num_slots = 2**20. The
       block-sparse kernels are also held on a fully masked q block (zeros)
-      and in bfloat16.
+      and in bfloat16; coo_to_levels also at (l)'s shape.
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
 each of (g)-(j) and read after it: its kernel must have launched there, and
-(g)-(i) must report block size 128 and no fallback call. fused_imr's counter
-is zeroed before its own entry call in (f) and read after it. Any mismatch
-or error exits non-zero. The last lines printed are the ``kernels`` JSON
-line, the card's name and power limit from nvidia-smi, and the ``ok`` JSON
-line.
+(g)-(i) must report block size 128 and no fallback call. They are zeroed
+before (k), (k2) and (l) too: coo_to_levels and a reduce kernel must have
+launched in (k), and no call of (k) may regrow its recorded capacities.
+fused_imr's counter is zeroed before its own entry call in (f) and read
+after it. Any mismatch or error exits non-zero. The last lines printed are
+the ``kernels`` JSON line, the card's name and power limit from
+nvidia-smi, and the ``ok`` JSON line.
 """
 from __future__ import annotations
 
@@ -117,7 +135,14 @@ KERNEL_META = {
     "bsr_attention": (
         "src/repro_torch/kernels/csrc/bsr_attention.cu",
         "src/repro/kernels/bsr_attention.py:108"),
+    "coo_to_levels": (
+        "src/repro_torch/kernels/csrc/coo_levels.cu",
+        "src/repro/kernels/coo_levels.py:33"),
 }
+# (k): graph attention as a fused SDDMM -> SpMM program (GAT-style)
+GAT = "T(i,j) = B(i,j) * C(i,f) * D(j,f); A(i,g) = T(i,j) * E(j,g)"
+GAT_FMT = {"B": "cc", "T": "cc", "C": "dd", "D": "dd", "E": "dd", "A": "dd"}
+GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 
 
 def log(*parts):
@@ -251,12 +276,13 @@ def profiler_warmup():
     torch.cuda.synchronize()
 
 
-def profiled_device_ms(fn, match, reps=20):
+def profiled_device_ms(fn, match, reps=20, per_call=1):
     """Per-call device time of ``fn`` from torch.profiler's kernel events:
     (all kernels, the kernels whose name contains ``match``), or
     (None, None) when the profiler recorded no such kernel. Sums are
-    divided by the number of ``match`` kernels the profiler recorded, not
-    by ``reps``: it does not always record every launch."""
+    divided by the number of calls the profiler recorded (``match``
+    kernels over the ``per_call`` of them one call launches), not by
+    ``reps``: it does not always record every launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -270,6 +296,7 @@ def profiled_device_ms(fn, match, reps=20):
         torch.cuda.synchronize()
     total = mine = 0.0
     recorded = 0
+    split = {}
     for evt in prof.key_averages():
         if (evt.device_type != torch.autograd.DeviceType.CUDA
                 or "spin_kernel" in evt.key):
@@ -278,11 +305,18 @@ def profiled_device_ms(fn, match, reps=20):
         if match in evt.key:
             mine += evt.self_device_time_total
             recorded += evt.count
+            name = evt.key.split("::")[-1].split("(")[0]
+            split[name] = split.get(name, 0.0) + evt.self_device_time_total
     if not recorded:
         return None, None
-    if recorded != reps:
-        log(f"  profiler recorded {recorded} of {reps} {match} launches")
-    return total / recorded / 1e3, mine / recorded / 1e3
+    if recorded != reps * per_call:
+        log(f"  profiler recorded {recorded} of {reps * per_call} {match} "
+            f"launches")
+    calls = recorded / per_call
+    if per_call > 1:     # a wrapper of several kernels: each one's share
+        log("  per call: " + ", ".join(
+            f"{k} {v / calls / 1e3:.4f} ms" for k, v in sorted(split.items())))
+    return total / calls / 1e3, mine / calls / 1e3
 
 
 def main() -> int:
@@ -293,7 +327,10 @@ def main() -> int:
         return 2
     from repro_torch.core import coord_ops as co
     from repro_torch.core.schedule import Format, Schedule
-    from repro_torch.core.torch_backend import clear_compile_cache, compile_expr
+    from repro_torch.core.torch_backend import (_bucket_cap,
+                                                clear_compile_cache,
+                                                clear_program_cache,
+                                                compile_expr, compile_program)
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_stream import (fused_imr_workspace,
@@ -302,6 +339,8 @@ def main() -> int:
     from repro_torch.kernels.segment_reduce import segment_reduce_plain
     from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
                                                    bsr_flash_attention_plain)
+    from repro_torch.kernels.coo_levels import (coo_to_levels,
+                                                coo_to_levels_plain)
     from repro_torch.kernels.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
     from repro_torch.kernels.spmm_bsr import spmm_bsr, spmm_bsr_plain
 
@@ -336,7 +375,8 @@ def main() -> int:
                 segment_reduce.__code__: "segment_reduce",
                 spmm_bsr.__code__: "spmm_bsr",
                 sddmm_bsr.__code__: "sddmm_bsr",
-                bsr_flash_attention.__code__: "bsr_attention"}
+                bsr_flash_attention.__code__: "bsr_attention",
+                coo_to_levels.__code__: "coo_to_levels"}
 
     def record_kernel_inputs(tag, fn):
         """Run ``fn`` once, keeping a copy of the arguments of every call
@@ -431,17 +471,24 @@ def main() -> int:
                 "top_kernels": [{"ms": ms, "count": n, "name": k[:80]}
                                 for ms, n, k in rows[:8]]}
 
-    def run_workload(tag, label, expr, fmts, order, dims, arrays, want,
-                     check=check_equal, reps=5):
+    def expr_engine(expr, fmts, order, dims):
+        return compile_expr(expr, Format(fmts), Schedule(loop_order=order),
+                            dims)
+
+    def run_workload(tag, label, eng, arrays, want, check=check_equal,
+                     reps=5, result=lambda out: out):
+        """Drive one engine on one operand set: first call, warm median,
+        recorded kernel inputs, host and device profiles. ``result`` picks
+        the checked FiberTree out of what the engine returns; the first
+        call's dense result is returned."""
         before = kops.launch_counts()
-        eng = compile_expr(expr, Format(fmts), Schedule(loop_order=order),
-                           dims)
         t0 = time.perf_counter()
         got = eng(arrays)
         first_ms = (time.perf_counter() - t0) * 1e3
-        check(label, tree_to_dense(got), want)
+        dense = tree_to_dense(result(got))
+        check(label, dense, want)
         ms = warm_ms(lambda: eng(arrays), reps)
-        check(label + " (warm)", tree_to_dense(eng(arrays)), want)
+        check(label + " (warm)", tree_to_dense(result(eng(arrays))), want)
         record_kernel_inputs(tag, lambda: eng(arrays))
         host = host_profile(lambda: eng(arrays))
         prof = device_profile(lambda: eng(arrays))
@@ -463,6 +510,7 @@ def main() -> int:
         for row in prof["top_kernels"][:4]:
             log(f"[{tag}]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
         log(f"[{tag}] engine stats {eng.stats}")
+        return dense
 
     # -- (c) SpMV ------------------------------------------------------------
     import scipy.sparse as sp
@@ -471,8 +519,9 @@ def main() -> int:
     B = sparse_int(rng, (n, n), 0.004)
     c = rng.integers(1, 9, n).astype(float)
     log(f"[c] B nnz {np.count_nonzero(B)}")
-    run_workload("c", "SpMV 16384", "x(i) = B(i,j) * c(j)",
-                 {"B": "cc", "c": "c"}, ("i", "j"), {"i": n, "j": n},
+    run_workload("c", "SpMV 16384",
+                 expr_engine("x(i) = B(i,j) * c(j)", {"B": "cc", "c": "c"},
+                             ("i", "j"), {"i": n, "j": n}),
                  {"B": B, "c": c}, sp.csr_matrix(B) @ c)
     del B
 
@@ -483,10 +532,11 @@ def main() -> int:
     Bs, Cs = sp.csr_matrix(B), sp.csr_matrix(C)
     products = int(np.diff(Cs.indptr)[Bs.indices].sum())
     log(f"[d] B nnz {Bs.nnz}, C nnz {Cs.nnz}, products {products}")
-    run_workload("d", "SpMSpM 4096 ikj", "X(i,j) = B(i,k) * C(k,j)",
-                 {"B": "cc", "C": "cc"}, ("i", "k", "j"),
-                 {"i": n, "j": n, "k": n}, {"B": B, "C": C},
-                 (Bs @ Cs).toarray())
+    run_workload("d", "SpMSpM 4096 ikj",
+                 expr_engine("X(i,j) = B(i,k) * C(k,j)",
+                             {"B": "cc", "C": "cc"}, ("i", "k", "j"),
+                             {"i": n, "j": n, "k": n}),
+                 {"B": B, "C": C}, (Bs @ Cs).toarray())
     del B, C, Bs, Cs
 
     # the same loop with a result of 1024 x 1024 = 2**20 keys: the collapse
@@ -495,19 +545,22 @@ def main() -> int:
     n = 1024
     B = sparse_int(rng, (n, n), 0.01)
     C = sparse_int(rng, (n, n), 0.01)
-    run_workload("d2", "SpMSpM 1024 ikj", "X(i,j) = B(i,k) * C(k,j)",
-                 {"B": "cc", "C": "cc"}, ("i", "k", "j"),
-                 {"i": n, "j": n, "k": n}, {"B": B, "C": C},
+    run_workload("d2", "SpMSpM 1024 ikj",
+                 expr_engine("X(i,j) = B(i,k) * C(k,j)",
+                             {"B": "cc", "C": "cc"}, ("i", "k", "j"),
+                             {"i": n, "j": n, "k": n}),
+                 {"B": B, "C": C},
                  (sp.csr_matrix(B) @ sp.csr_matrix(C)).toarray())
     del B, C
 
     # -- (e) Plus3 -------------------------------------------------------------
     n = 1024
     arrays = {t: sparse_int(rng, (n, n), 0.05) for t in "BCD"}
-    run_workload("e", "Plus3 1024", "X(i,j) = B(i,j) + C(i,j) + D(i,j)",
-                 {"B": "cc", "C": "cc", "D": "cc"}, ("i", "j"),
-                 {"i": n, "j": n}, arrays,
-                 arrays["B"] + arrays["C"] + arrays["D"])
+    run_workload("e", "Plus3 1024",
+                 expr_engine("X(i,j) = B(i,j) + C(i,j) + D(i,j)",
+                             {"B": "cc", "C": "cc", "D": "cc"}, ("i", "j"),
+                             {"i": n, "j": n}),
+                 arrays, arrays["B"] + arrays["C"] + arrays["D"])
 
     main_counts = kops.launch_counts()
     log(f"[b-e] launches on the main path: {main_counts}")
@@ -527,8 +580,8 @@ def main() -> int:
     def run_bsr(tag, label, kind, kernel, expr, fmts, dims, arrays, want,
                 check=check_equal):
         kops.reset_launch_counts()
-        run_workload(tag, label, expr, fmts, tuple(dims), dims, arrays, want,
-                     check=check, reps=3)
+        run_workload(tag, label, expr_engine(expr, fmts, tuple(dims), dims),
+                     arrays, want, check=check, reps=3)
         st = workloads[label]["stats"]
         if (st["kernel"] != kind or st["block_size"] != bs
                 or st["fallback_calls"] or per_phase[tag][kernel] < 1):
@@ -607,6 +660,110 @@ def main() -> int:
         f"causal off and on: finite; launches {per_phase['j']}")
     del outs
 
+    # -- (k), (k2) the fused GAT-style program -------------------------------
+    # ogbn-arxiv's widths: 128 node features, mean degree about 13.7 once
+    # symmetrized; the node count is cut to 16384 (the entry point takes
+    # dense operands) and the degree is uniform (14 distinct neighbours a row)
+    n_nodes, deg, feat = 16384, 14, 128
+    src = np.repeat(np.arange(n_nodes), deg)
+    dst = np.concatenate([rng.choice(n_nodes, deg, replace=False)
+                          for _ in range(n_nodes)])
+    edge = rng.integers(1, 4, src.size) * rng.choice([-1, 1], src.size)
+    adj = np.zeros((n_nodes, n_nodes))
+    adj[src, dst] = edge
+    feats = {t: rng.integers(-3, 4, (n_nodes, feat)).astype(float)
+             for t in "CDE"}
+    gat_arrays = {"B": adj, **feats}
+    scores = edge * np.einsum("ef,ef->e", feats["C"][src], feats["D"][dst])
+    gat_want = sp.csr_matrix((scores, (src, dst)),
+                             shape=(n_nodes, n_nodes)) @ feats["E"]
+    gat_dims = {"i": n_nodes, "j": n_nodes, "f": feat, "g": feat}
+    log(f"[k] B {n_nodes} x {n_nodes}: {src.size} edges; C, D, E "
+        f"{n_nodes} x {feat}")
+    gat_out = {}
+
+    def run_program(tag, label, fuse):
+        kops.reset_launch_counts()
+        cp = compile_program(
+            GAT, Format(GAT_FMT),
+            {k: Schedule(loop_order=o) for k, o in GAT_ORDER.items()},
+            gat_dims, fuse=fuse)
+        gat_out[tag] = run_workload(tag, label, cp, gat_arrays, gat_want,
+                                    reps=3, result=lambda out: out["A"])
+        units = [dict(u.stats) for _, _, u in cp.units]
+        workloads[label]["unit_stats"] = units
+        log(f"[{tag}] units {units}")
+        return cp, units
+
+    # the first call records capacities, so no call of (k) may regrow them
+    cp, units = run_program("k", "GAT fused", True)
+    reduces = (per_phase["k"]["segment_reduce"]
+               + per_phase["k"]["scatter_workspace"])
+    if (cp.stats["fused_stages"] != 2 or cp.stats["fused_intermediates"] != 1
+            or cp.stats["materialized_handoffs"] != 0
+            or per_phase["k"]["coo_to_levels"] < 1 or reduces < 1
+            or any(u["overflow_retries"] for u in units)):
+        raise AssertionError(f"(k) stats {cp.stats}, launches "
+                             f"{per_phase['k']}, units {units}")
+    cp, _ = run_program("k2", "GAT unfused", False)
+    if (cp.stats["fused_stages"] != 0
+            or cp.stats["materialized_handoffs"] != 1
+            or not np.array_equal(gat_out["k2"], gat_out["k"])):
+        raise AssertionError(f"(k2) stats {cp.stats}, or A differs from (k)")
+    log(f"[k2] A is bit-identical to (k)'s; warm median fused "
+        f"{workloads['GAT fused']['warm_ms']:.1f} ms, unfused "
+        f"{workloads['GAT unfused']['warm_ms']:.1f} ms")
+    clear_program_cache()
+    del adj, gat_arrays, gat_out, cp
+
+    # -- (l) coo_to_levels alone at 2**24 keys -------------------------------
+    dims_l = [4096, 1 << 25, 8]
+    n_l = 1 << 24
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    space = 4096 * (1 << 25) * 8
+    raw = torch.unique(torch.randint(0, space, (n_l + (1 << 16),),
+                                     device="cuda", generator=g))
+    pick = torch.randperm(raw.numel(), device="cuda", generator=g)[:n_l]
+    keys_l = torch.cat([raw[pick.sort().values],
+                        torch.full((1024,), co.PAD_KEY, device="cuda")])
+    valid_l = keys_l != co.PAD_KEY
+    del raw, pick
+    counts_l, pref = [], keys_l[:n_l]
+    for d in reversed(dims_l):
+        counts_l.insert(0, int(torch.unique(pref).numel()))
+        pref = pref // d
+    caps_l = [_bucket_cap(c) for c in counts_l]
+
+    def coo_equal(got, want, where):
+        for part, dtype in enumerate((torch.int32, torch.int32,
+                                      torch.int64)):
+            for lvl, (a, b) in enumerate(zip(got[part], want[part])):
+                if a.dtype != dtype or not torch.equal(a, b):
+                    raise AssertionError(f"coo_to_levels differs from its "
+                                         f"plain version at {where}: part "
+                                         f"{part}, level {lvl}")
+
+    kops.reset_launch_counts()
+    for caps in (caps_l, [c // 2 for c in counts_l]):
+        got = coo_to_levels(keys_l, valid_l, dims_l, caps)
+        coo_equal(got, coo_to_levels_plain(keys_l, valid_l, dims_l, caps),
+                  f"(l) caps {caps}")
+        if [int(c) for c in got[2]] != counts_l:
+            raise AssertionError(f"(l) counts {got[2]} != {counts_l}")
+    for keys_e in (torch.zeros(0, dtype=torch.int64, device="cuda"),
+                   torch.tensor([12345], device="cuda")):
+        valid_e = torch.ones_like(keys_e, dtype=torch.bool)
+        coo_equal(coo_to_levels(keys_e, valid_e, dims_l, [8, 8, 8]),
+                  coo_to_levels_plain(keys_e, valid_e, dims_l, [8, 8, 8]),
+                  f"(l) N={keys_e.numel()}")
+    torch.cuda.synchronize()
+    per_phase["l"] = kops.launch_counts()
+    if per_phase["l"]["coo_to_levels"] != 4:
+        raise AssertionError(f"(l) launches {per_phase['l']}")
+    log(f"[l] coo_to_levels on N={keys_l.numel()} dims {dims_l}: counts "
+        f"{counts_l} exact and equal to the plain version at caps {caps_l} "
+        f"and at half the counts (overflow); N=0 and N=1 equal too")
+
     # -- (f) kernels against their plain versions ----------------------------
     # each kernel is timed at the last input a warm (plan-cached) call of
     # each workload handed it; the kernels line carries the largest of
@@ -627,7 +784,10 @@ def main() -> int:
         return err
 
     def timed_library(name, library):
-        """Time one PyTorch library call, or None where it does not run."""
+        """Time one PyTorch library call, or None where there is none or it
+        does not run."""
+        if library is None:
+            return None
         try:
             library()
             return event_ms(library)
@@ -636,8 +796,8 @@ def main() -> int:
             return None
 
     def report(name, launches, kernel, plain, library, nbytes, nops, where,
-               tol=0.0):
-        err = held(name, kernel(), plain(), where, tol)
+               tol=0.0, flat=lambda out: out, per_call=1):
+        err = held(name, flat(kernel()), flat(plain()), where, tol)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = nops / FP32_OPS_PER_S
         row = {"name": name, "route": "cuda",
@@ -651,7 +811,8 @@ def main() -> int:
         # CUDA events time the wrapper call as the engine pays it, host
         # launch gaps included; the profiler splits out device time
         row["device_ms"], row["kernel_device_ms"] = profiled_device_ms(
-            kernel, name)          # each kernel's symbol contains its name
+            kernel, name,          # each kernel's symbol contains its name
+            per_call=per_call)
         # the same events again, after the profiled run: a spread between
         # the two readings is the card's, not the kernel's
         row["ms_again"] = event_ms(kernel)
@@ -870,6 +1031,35 @@ def main() -> int:
         plain = spmm_bsr_plain if name == "spmm_bsr" else sddmm_bsr_plain
         err = held(name, fn(*args), plain(*args), "bfloat16")
         log(f"[f] {name} in bfloat16 at the same shape: max abs err {err}")
+
+    # coo_to_levels at (k)'s intermediate (the row of the kernels line) and
+    # at (l); no single PyTorch call computes it, so it has no library time
+    def coo_flat(out):
+        return torch.cat([t.reshape(-1).long() for part in out for t in part])
+
+    def coo_bytes(n, caps):
+        """keys (8 B) and valid (1 B) read once for the whole call; each
+        level's crd, seg and count written once."""
+        total, parent = n * 9, 1
+        for cap in caps:
+            total += cap * 4 + (parent + 1) * 4 + 8
+            parent = cap
+        return total
+
+    for tag, kw in (("k", seen["k"]["coo_to_levels"][-1]),
+                    ("l", {"keys": keys_l, "valid": valid_l,
+                           "dims_list": dims_l, "caps": caps_l})):
+        ck, cv, cd, cc = kw["keys"], kw["valid"], kw["dims_list"], kw["caps"]
+        row = report(
+            "coo_to_levels", per_phase[tag]["coo_to_levels"],
+            lambda: coo_to_levels(ck, cv, cd, cc),
+            lambda: coo_to_levels_plain(ck, cv, cd, cc), None,
+            coo_bytes(ck.numel(), cc), 0,
+            f"({tag}) N={ck.numel()} dims={list(cd)} caps={list(cc)}",
+            flat=coo_flat, per_call=4 * len(cd))
+        if tag == "k":
+            kernels.append(row)
+    del keys_l, valid_l
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

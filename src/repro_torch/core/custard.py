@@ -725,12 +725,28 @@ def lower_single_terms(assign: Assignment, fmt: Format, schedule: Schedule,
 
 def lower_program(program, fmt: Format, schedules, dims: Dict[str, int], *,
                   sparsity=None, fuse: bool = True):
-    """Lower a multi-assignment program (the reference's
-    ``program.lower_program``): not ported yet, so it raises.
+    """Lower a multi-assignment program: per-stage ``Lowered`` objects
+    plus the producer→consumer fusion plan (``program.lower_program``).
+
+    ``schedules`` is a dict keyed by stage lhs tensor or a sequence
+    aligned with the stages (``"auto"`` raises until the autoscheduler is
+    ported); fused stages share scanners — the consumer's scanners of a
+    fused intermediate are spliced wires carrying the producer's writer
+    streams (DESIGN.md §6).
+
+    >>> from repro_torch.core.schedule import Format
+    >>> lp = lower_program(
+    ...     "T(i,j) = B(i,k) * C(k,j); A(i,j) = T(i,k) * E(k,j)",
+    ...     Format({"B": "cc", "C": "cc", "E": "cc", "T": "cc"}),
+    ...     {"T": Schedule(loop_order=("i", "k", "j")),
+    ...      "A": Schedule(loop_order=("i", "k", "j"))},
+    ...     {"i": 4, "j": 4, "k": 4})
+    >>> [d.fused for d in lp.decisions]
+    [True]
     """
-    raise NotImplementedError(
-        "programs are not ported to PyTorch yet (ROADMAP.md, still to "
-        "port #4: programs with coo_to_levels)")
+    from .program import lower_program as _lower_program
+    return _lower_program(program, fmt, schedules, dims,
+                          sparsity=sparsity, fuse=fuse)
 
 
 def clear_lowering_cache() -> None:

@@ -42,9 +42,17 @@ SDDMM, block attention) to a ``BsrEngine`` on its three hand-written
 kernels; any other ``b``-format expression goes on to ``CompiledExpr``,
 which refuses ``b`` levels as the reference's does.
 
+Multi-assignment programs (``compile_program`` -> ``CompiledProgram``)
+run each fused producer→consumer chain as one ``_FusedChain``: the
+producer's keyed COO result turns into on-device ``(seg, crd)`` levels
+through the ``coo_to_levels`` dispatch entry (the hand-written
+``coo_levels`` kernel on the GPU) and the consumer's level scanners read
+them there; every other stage is a ``CompiledExpr`` with a dense host
+handoff between units.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md slice: ``split``/``parallelize`` lanes and batches, tiles and
-``mem_budget``, ``schedule="auto"``, and programs.
+``mem_budget``, and ``schedule="auto"``.
 """
 from __future__ import annotations
 
@@ -59,9 +67,10 @@ from . import coord_ops as co
 from . import graph as g
 from .bsr_bridge import BsrEngine, bsr_pattern
 from .custard import expr_cache_key, lower
-from .einsum import Assignment, parse
+from .einsum import Assignment, Term, parse
 from .fibertree import BITVECTOR, COMPRESSED, DENSE, FiberTree, canonical_tree
-from .schedule import Format, Schedule
+from .program import lower_program, program_cache_key
+from .schedule import Format, Schedule, build_inputs
 
 PAD = co.PAD_KEY
 
@@ -1006,3 +1015,353 @@ def execute_expr(expr: str, fmt: Format, schedule: Schedule,
     out_fmt = fmt.of(low.orig_assign.lhs.tensor,
                      len(low.orig_assign.lhs.vars))
     return FiberTree.from_dense(np.asarray(total), out_fmt or "")
+
+
+# ---------------------------------------------------------------------------
+# compiled programs: fused producer→consumer cascades (DESIGN.md §6)
+# ---------------------------------------------------------------------------
+
+class _FusedChain:
+    """One fused pipeline run as ONE plan-cached callable.
+
+    The stages (program order; the last one is the chain's sink) execute
+    back to back on ``device``: each fused intermediate's keyed COO result
+    converts to on-device ``(seg, crd)`` level tensors (the
+    ``coo_to_levels`` entry) that the next stage's level scanners read
+    directly — the intermediate never round-trips through a host
+    ``FiberTree``. Capacities (scan streams, stage outputs, intermediate
+    levels) are recorded eagerly on first call, bucketed, and grown on
+    overflow exactly like ``CompiledExpr``; the intermediate levels' live
+    counts join the one host transfer of needed sizes per run.
+    """
+
+    def __init__(self, stages, *, device, segsum=None, intersect=None,
+                 coo_levels=None):
+        self.stages = stages
+        self.device = torch.device(device)
+        self.names = [s.name for s in stages]
+        fused = {t for s in stages for t in s.fused_inputs}
+        self.graphs = [s.lowered.graph for s in stages]
+        self.signs = [s.lowered.terms[0].sign for s in stages]
+        self._segsum = segsum
+        self._intersect = intersect
+        self._coo_levels = coo_levels or co.coo_to_levels
+        # external accesses per stage (everything not spliced), and the
+        # sub-assignment used to build their concordant fibertrees
+        self._ext: List[Tuple] = []
+        for s in stages:
+            accs, seen = [], set()
+            for t in s.lowered.assign.terms:
+                for f in t.factors:
+                    if f.tensor not in fused and f.tensor not in seen:
+                        accs.append(f)
+                        seen.add(f.tensor)
+            self._ext.append((tuple(accs),
+                              Assignment(lhs=s.lowered.assign.lhs,
+                                         terms=(Term(1, tuple(accs)),))))
+        # fused intermediates' level extents (producer storage order)
+        self._inter_dims = {
+            s.name: [s.lowered.dims[v] for v in s.lowered.result_vars]
+            for s in stages if s.fused_output}
+        final = stages[-1]
+        self._final_rvars = final.lowered.result_vars
+        self._scalar = not self._final_rvars
+        writer = _val_writer_node(self.graphs[-1])
+        self._out_shape = writer.params.get("shape", ())
+        self._out_fmt = (writer.params.get("format")
+                         or "c" * len(self._final_rvars))
+        self._mode_order = writer.params.get("mode_order")
+        self._strides = [(v, final.lowered.dims[v])
+                         for v in self._final_rvars]
+        self._level_meta: Dict[str, List[Tuple[str, int]]] = {}
+        self._plans: Dict[Tuple, _Plan] = {}
+        self._core_cache: Dict[Tuple, Callable] = {}
+        self.stats = {"traces": 0, "plan_hits": 0, "plan_misses": 0,
+                      "overflow_retries": 0, "calls": 0}
+
+    # -- operand flattening ------------------------------------------------
+    def _raw_flat(self, env: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        raw = {}
+        for i, stg in enumerate(self.stages):
+            accs, sub = self._ext[i]
+            fts = build_inputs(sub, stg.lowered.fmt, stg.lowered.schedule,
+                               {a.tensor: env[a.tensor] for a in accs})
+            for name, ft in fts.items():
+                key = f"s{i}.{name}"
+                ft = _engine_tree(ft)
+                self._level_meta.setdefault(
+                    key, [(lv.format, lv.dim) for lv in ft.levels])
+                raw[key] = _raw_flat_of(ft)
+        return raw
+
+    def _stage_tensors(self, flat, i: int, inter: Dict[str, JTensor]
+                       ) -> Dict[str, JTensor]:
+        accs, _ = self._ext[i]
+        sub = {f"s{i}.{a.tensor}": flat[f"s{i}.{a.tensor}"] for a in accs}
+        tensors = {k.split(".", 1)[1]: v for k, v in
+                   _tensors_from_flat_arrays(sub, self._level_meta,
+                                             self.device).items()}
+        for t in self.stages[i].fused_inputs:
+            tensors[t] = inter[t]
+        return tensors
+
+    def _backend(self, i: int, tensors, **caps) -> TorchBackend:
+        stg = self.stages[i]
+        return TorchBackend(self.graphs[i], tensors, stg.lowered.dims,
+                            stg.lowered.result_vars, device=self.device,
+                            segsum=self._segsum, intersect=self._intersect,
+                            **caps)
+
+    # -- the COO -> levels splice ------------------------------------------
+    def _jt_from_coo(self, coo: COOResult, sign: int, level_caps
+                     ) -> Tuple[JTensor, List]:
+        dims_list = [d for _, d in coo.strides]
+        segs, crds, counts = self._coo_levels(coo.keys, coo.valid,
+                                              dims_list, level_caps)
+        cap_in = level_caps[-1]
+        vals = coo.vals if sign == 1 else sign * coo.vals
+        if vals.shape[0] >= cap_in:
+            vals = vals[:cap_in]
+        else:
+            vals = torch.cat([vals, vals.new_zeros(cap_in - vals.shape[0])])
+        levels = [JLevel(seg, crd, d)
+                  for seg, crd, d in zip(segs, crds, dims_list)]
+        return JTensor(levels, vals), counts
+
+    # -- capacity recording ------------------------------------------------
+    def _record_caps(self, flat) -> Dict[str, int]:
+        """Eager capacity-recording pass over one padded operand set,
+        through the same dispatch entries as the plans."""
+        caps: Dict[str, int] = {}
+        inter: Dict[str, JTensor] = {}
+        for i, stg in enumerate(self.stages):
+            be = self._backend(i, self._stage_tensors(flat, i, inter))
+            v = be.run_streams()
+            for k, n in be.caps_record.items():
+                caps[f"s{i}.{k}"] = _bucket_cap(n)
+            if not stg.fused_output:
+                continue
+            keys = v.keys[v.valid].cpu().numpy()
+            dims_list = [d for _, d in v.strides]
+            cnts: List[int] = []
+            p = keys
+            for l in range(len(dims_list) - 1, -1, -1):
+                cnts.insert(0, len(np.unique(p)))
+                p = p // dims_list[l]
+            level_caps = [_bucket_cap(c) for c in cnts]
+            for l, c in enumerate(level_caps):
+                caps[f"s{i}.lv{l}"] = c
+            inter[stg.name], _ = self._jt_from_coo(v, self.signs[i],
+                                                   level_caps)
+        return caps
+
+    # -- the cascade ---------------------------------------------------------
+    def _build_core(self, caps: Dict[str, int]) -> Callable:
+        scan_caps = [
+            {n.id: caps[f"s{i}.s{n.id}"] for n in G.of_kind(g.LEVEL_SCAN)}
+            for i, G in enumerate(self.graphs)]
+        out_caps = [caps.get(f"s{i}.out") for i in range(len(self.graphs))]
+        level_caps = {
+            s.name: [caps[f"s{i}.lv{l}"]
+                     for l in range(len(self._inter_dims[s.name]))]
+            for i, s in enumerate(self.stages) if s.fused_output}
+
+        def core(flat):
+            required: Dict[str, torch.Tensor] = {}
+            inter: Dict[str, JTensor] = {}
+            v = None
+            for i, stg in enumerate(self.stages):
+                be = self._backend(i, self._stage_tensors(flat, i, inter),
+                                   scan_caps=scan_caps[i],
+                                   out_cap=out_caps[i])
+                v = be.run_streams()
+                for k, r in be.required.items():
+                    required[f"s{i}.{k}"] = r
+                if stg.fused_output:
+                    jt, counts = self._jt_from_coo(
+                        v, self.signs[i], level_caps[stg.name])
+                    for l, c in enumerate(counts):
+                        required[f"s{i}.lv{l}"] = c
+                    inter[stg.name] = jt
+            sign = self.signs[-1]
+            if self._scalar:
+                return {"scalar": sign * v}, required
+            vals = v.vals if sign == 1 else sign * v.vals
+            return {"keys": v.keys, "vals": vals, "valid": v.valid}, required
+
+        return core
+
+    def _install_plan(self, sig, caps: Dict[str, int]) -> _Plan:
+        core_key = (sig, tuple(sorted(caps.items())))
+        fn = self._core_cache.get(core_key)
+        if fn is None:
+            fn = self._build_core(caps)
+            self._core_cache[core_key] = fn
+            self.stats["traces"] += 1
+        plan = _Plan(caps=caps, fn=fn)
+        self._plans[sig] = plan
+        return plan
+
+    def _run_plan(self, plan: _Plan, sig, flat):
+        return _run_with_growth(plan, flat, self.stats,
+                                lambda caps: self._install_plan(sig, caps))
+
+    # -- public --------------------------------------------------------------
+    def execute(self, env: Dict[str, np.ndarray]) -> FiberTree:
+        self.stats["calls"] += 1
+        flat, sig = _pad_flat_arrays(self._raw_flat(env), self._level_meta)
+        plan = self._plans.get(sig)
+        if plan is None:
+            self.stats["plan_misses"] += 1
+            plan = self._install_plan(sig, self._record_caps(flat))
+        else:
+            self.stats["plan_hits"] += 1
+        out = self._run_plan(plan, sig, flat)
+        if "scalar" in out:
+            return FiberTree.from_dense(np.asarray(float(out["scalar"])), "")
+        return coo_to_fibertree(out["keys"], out["vals"], out["valid"],
+                                self._strides, self._out_shape,
+                                self._out_fmt, self._mode_order)
+
+
+class CompiledProgram:
+    """A multi-assignment program compiled into executable units.
+
+    Fused pipelines (``LoweredProgram.components`` with >1 stage) become
+    one ``_FusedChain`` — one plan-cached callable, intermediates living
+    on ``device``. Every other stage runs through its own process-wide
+    ``CompiledExpr``, with dense materialization between units.
+
+    Calling the program returns one ``FiberTree`` per MATERIALIZED stage
+    output; fused-away intermediates are never built and do not appear.
+    """
+
+    def __init__(self, lp, *, use_kernels: bool = True, device=None):
+        self.device = co.resolve_device(device)
+        self.lp = lp
+        self.cache_key = program_cache_key(lp)
+        segsum = intersect = coo_levels = None
+        if use_kernels:
+            segsum = kops.sam_primitive("keyed_segment_sum", self.device)
+            intersect = kops.sam_primitive("sorted_intersect", self.device)
+            coo_levels = kops.sam_primitive("coo_to_levels", self.device)
+        self.units: List[Tuple[str, List[int], Any]] = []
+        for comp in lp.components():
+            if len(comp) == 1:
+                stg = lp.stages[comp[0]]
+                eng = compile_expr(stg.assign, lp.fmt, stg.schedule,
+                                   stg.dims, use_kernels=use_kernels,
+                                   device=self.device)
+                self.units.append(("expr", comp, eng))
+            else:
+                chain = _FusedChain([lp.stages[i] for i in comp],
+                                    device=self.device, segsum=segsum,
+                                    intersect=intersect,
+                                    coo_levels=coo_levels)
+                self.units.append(("chain", comp, chain))
+        self.stats = {
+            "calls": 0,
+            "fused_stages": sum(len(c) for k, c, _ in self.units
+                                if k == "chain"),
+            "fused_intermediates": len(lp.fused_tensors),
+            "materialized_handoffs": len(
+                [d for d in lp.decisions if not d.fused]),
+        }
+
+    @property
+    def decisions(self):
+        return self.lp.decisions
+
+    @property
+    def inputs(self) -> Tuple[str, ...]:
+        return self.lp.program.inputs
+
+    def execute(self, arrays: Dict[str, np.ndarray]) -> Dict[str, FiberTree]:
+        """Run the program; returns ``{lhs tensor: FiberTree}`` for every
+        stage whose result materializes (fused intermediates excluded)."""
+        return self(arrays)
+
+    def __call__(self, arrays: Dict[str, np.ndarray]
+                 ) -> Dict[str, FiberTree]:
+        self.stats["calls"] += 1
+        env = {k: np.asarray(v, dtype=float) for k, v in arrays.items()}
+        results: Dict[str, FiberTree] = {}
+        for kind, comp, unit in self.units:
+            if kind == "expr":
+                stg = self.lp.stages[comp[0]]
+                ft = unit({t: env[t]
+                           for t in stg.lowered.orig_assign.input_tensors})
+                name = stg.name
+            else:
+                ft = unit.execute(env)
+                name = unit.names[-1]
+            results[name] = ft
+            if self.lp.program.consumers(name):
+                env[name] = ft.to_dense()   # materialized handoff
+        return results
+
+
+_COMPILED_PROGRAMS: Dict[Tuple, CompiledProgram] = {}
+
+
+def compile_program(program, fmt: Format, schedules, dims: Dict[str, int],
+                    *, use_kernels: bool = True, sparsity=None,
+                    fuse: bool = True, mem_budget=None, device=None
+                    ) -> CompiledProgram:
+    """Compile a multi-assignment program once; plan-cached per cascade.
+
+    Args:
+        program: program text (``;``/newline-separated assignments), a
+            ``program.Program``, or a sequence of assignments.
+        fmt: per-tensor formats, intermediates included.
+        schedules: a dict keyed by stage lhs tensor, or a sequence aligned
+            with the stages (``"auto"`` is not ported yet).
+        dims: extent of every index variable used by any stage.
+        use_kernels: route the hot primitives (the chain's segment sums
+            and ``coo_to_levels``, every unit's reduces) through the
+            ``kernels/ops`` dispatch table (the CUDA kernels on a GPU).
+        sparsity: the reference's density hint for ``"auto"``; unused
+            until the autoscheduler is ported.
+        fuse: set False to force materialization between all stages (the
+            unfused comparison baseline).
+        mem_budget: the reference's out-of-core budget; not ported yet.
+        device: where the program runs; CUDA by default, and an error when
+            there is no GPU (pass ``device="cpu"`` for the CPU).
+
+    Returns:
+        The process-wide ``CompiledProgram`` for this configuration: the
+        key is the per-stage canonical expression keys PLUS the fusion
+        plan (DESIGN.md §6), ``use_kernels`` and ``device``, so a fused
+        and an unfused build of the same program are distinct engines.
+        (The reference also keys on the budget, and on the density hint
+        when a budget is set; both must be None here.)
+
+    >>> import numpy as np
+    >>> from repro_torch.core.schedule import Format, Schedule
+    >>> cp = compile_program(
+    ...     "T(i,k) = B(i,j) * C(j,k); x(i) = T(i,k) * d(k)",
+    ...     Format(default="c"),
+    ...     {"T": Schedule(loop_order=("i", "j", "k")),
+    ...      "x": Schedule(loop_order=("i", "k"))},
+    ...     {"i": 2, "j": 2, "k": 2}, device="cpu")
+    >>> out = cp({"B": np.eye(2), "C": np.eye(2), "d": np.ones(2)})
+    >>> sorted(out), out["x"].to_dense().tolist()
+    (['x'], [1.0, 1.0])
+    """
+    if mem_budget is not None:
+        raise NotImplementedError(
+            f"mem_budget routes through tiles, not ported yet "
+            f"({_TILES_SLICE})")
+    dev = co.resolve_device(device)
+    lp = lower_program(program, fmt, schedules, dims, sparsity=sparsity,
+                       fuse=fuse)
+    key = (program_cache_key(lp), use_kernels, str(dev))
+    hit = _COMPILED_PROGRAMS.get(key)
+    if hit is None:
+        hit = CompiledProgram(lp, use_kernels=use_kernels, device=dev)
+        _COMPILED_PROGRAMS[key] = hit
+    return hit
+
+
+def clear_program_cache() -> None:
+    _COMPILED_PROGRAMS.clear()

@@ -45,6 +45,8 @@ _SIGNATURES = {
                               _I, _I, _F, _I, _P],
     "sam_bsr_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P],
+    "sam_coo_levels_level": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _P,
+                             _LL, _P, _P, _P, _P, _P, _LL, _P],
 }
 
 _LOCK = threading.Lock()

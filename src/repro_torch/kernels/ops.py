@@ -17,8 +17,9 @@ compiled engine resolves its hot primitives here:
   intersect_mul_reduce — the whole Gustavson inner loop; on the GPU the
       ``fused_stream`` kernel. The engine does not resolve it (neither
       does the reference's).
-  coo_to_levels        — the program-fusion COO→levels handoff; fallback
-      only until programs are ported.
+  coo_to_levels        — the program-fusion COO→levels handoff of a fused
+      program's intermediate; on the GPU the ``coo_levels`` kernel, for
+      any level extent and capacity.
 
 The block-sparse kernels (``spmm_bsr``, ``sddmm_bsr``,
 ``bsr_flash_attention``) are called by ``core/bsr_bridge.BsrEngine``
@@ -44,6 +45,7 @@ import torch
 from ..core import coord_ops as _co
 from . import _build
 from .bsr_attention import bsr_flash_attention
+from .coo_levels import coo_to_levels
 from .fused_stream import fused_imr_workspace
 from .scatter_workspace import scatter_workspace
 from .sddmm_bsr import sddmm_bsr
@@ -55,7 +57,8 @@ _COUNTED = {"scatter_workspace": scatter_workspace,
             "fused_imr": fused_imr_workspace,
             "spmm_bsr": spmm_bsr,
             "sddmm_bsr": sddmm_bsr,
-            "bsr_attention": bsr_flash_attention}
+            "bsr_attention": bsr_flash_attention,
+            "coo_to_levels": coo_to_levels}
 
 
 def _keyed_segment_sum_cuda(vals, seg_ids, num_segments: int):
@@ -149,6 +152,7 @@ SAM_PRIMITIVES = {
         "fallback": _co.fused_intersect_mul_reduce,
     },
     "coo_to_levels": {
+        "cuda": coo_to_levels,
         "fallback": _co.coo_to_levels,
     },
 }

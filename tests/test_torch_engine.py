@@ -394,9 +394,10 @@ def test_unported_paths_raise_not_implemented(what):
         "mem_budget": lambda: compile_expr(expr, fmt, Schedule(**base), dims,
                                            device=CPU, mem_budget="1MB"),
         "lower_auto": lambda: lower(expr, fmt, "auto", dims),
+        # programs are ported; their "auto" schedules are not
         "lower_program": lambda: custard.lower_program(
             "T(i,j) = B(i,k) * C(k,j); A(i,j) = T(i,k) * E(k,j)",
-            fmt, {}, {"i": 4, "j": 4, "k": 4}),
+            fmt, "auto", {"i": 4, "j": 4, "k": 4}),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calls[what]()

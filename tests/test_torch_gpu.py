@@ -6,8 +6,10 @@ exact there), and must count one launch. The block-sparse kernels are
 also held at block sizes 1 to 128, in bfloat16, with ``causal``, with a
 fully masked q block (zeros), and at extents that are not multiples of
 128; attention on random data within a stated tolerance. The engines on
-CUDA must return the same FiberTree as on the CPU. This file needs no JAX,
-so it runs on a GPU machine as it is:
+CUDA must return the same FiberTree as on the CPU. ``coo_to_levels`` must
+equal its plain version bit for bit, under capacity overflow too, and a
+fused program on the card must equal the same program on the CPU. This
+file needs no JAX, so it runs on a GPU machine as it is:
 
     python -m pytest -q tests/test_torch_gpu.py
 """
@@ -17,10 +19,12 @@ import torch
 
 from repro_torch.core.bsr_bridge import BsrEngine
 from repro_torch.core.schedule import Format, Schedule
-from repro_torch.core.torch_backend import CompiledExpr, compile_expr
+from repro_torch.core.torch_backend import (CompiledExpr, compile_expr,
+                                            compile_program)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
                                                bsr_flash_attention_plain)
+from repro_torch.kernels.coo_levels import coo_to_levels, coo_to_levels_plain
 from repro_torch.kernels.fused_stream import (fused_imr_workspace,
                                               fused_imr_workspace_plain)
 from repro_torch.kernels.scatter_workspace import (scatter_workspace,
@@ -246,3 +250,91 @@ def test_bsr_engine_on_the_card_equals_the_cpu(cuda, kind):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+# -- the program path ---------------------------------------------------------
+
+def _coo_case(kind):
+    """(keys, valid, dims, caps) of one coo_to_levels case: sorted unique
+    keys with PAD_KEY rows after them."""
+    rng = np.random.default_rng(len(kind))
+    dims, n_pad = [6, 7, 5], 3
+    if kind in ("empty", "all_pad"):             # N = 0, or no valid row
+        keys = np.zeros(0, np.int64)
+        n_pad = 0 if kind == "empty" else 3
+    elif kind == "one_row":
+        keys = np.asarray([17], np.int64)
+    elif kind == "dense":
+        keys = np.arange(210, dtype=np.int64)
+    elif kind == "big_extent":                   # an extent >= 2**24
+        dims = [5, (1 << 24) + 3, 4]
+        keys = np.unique(rng.integers(0, 5 * ((1 << 24) + 3) * 4, 3000))
+    else:                    # "ragged": N not a multiple of the 1024-row tile
+        dims = [300, 64, 9]
+        keys = np.unique(rng.integers(0, 300 * 64 * 9, 5000))
+        n_pad = 1000
+    keys = np.concatenate([np.asarray(keys, np.int64),
+                           np.full(n_pad, PAD_KEY, np.int64)])
+    valid = keys != PAD_KEY
+    live = keys[valid]
+    counts, p = [], live
+    for d in reversed(dims):
+        counts.insert(0, len(np.unique(p)))
+        p = p // d
+    return torch.as_tensor(keys), torch.as_tensor(valid), dims, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["empty", "all_pad", "one_row", "dense",
+                                  "big_extent", "ragged"])
+@pytest.mark.parametrize("overflow", [False, True])
+def test_coo_to_levels_equals_plain(cuda, kind, overflow):
+    keys, valid, dims, counts = _coo_case(kind)
+    caps = ([max(c // 2, 1) for c in counts] if overflow
+            else [max(8, c + 5) for c in counts])
+    before = coo_to_levels.launches
+    got = coo_to_levels(keys.to(cuda), valid.to(cuda), dims, caps)
+    assert coo_to_levels.launches == before + 1
+    want = coo_to_levels_plain(keys, valid, dims, caps)
+    for part, dtype in enumerate((torch.int32, torch.int32, torch.int64)):
+        for lvl, (g, w) in enumerate(zip(got[part], want[part])):
+            assert g.dtype == w.dtype == dtype and g.shape == w.shape
+            assert torch.equal(g.cpu(), w), (part, lvl)
+    assert [int(c) for c in got[2]] == counts
+
+
+@pytest.mark.gpu
+def test_coo_to_levels_refuses_extents_beyond_int64(cuda):
+    keys = torch.zeros(1, dtype=torch.int64, device=cuda)
+    valid = torch.ones(1, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="int64"):
+        coo_to_levels(keys, valid, [2 ** 32, 2 ** 32], [1, 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [True, False])
+def test_program_on_the_card_equals_the_cpu(cuda, fuse):
+    rng = np.random.default_rng(8)
+    n, f = 64, 8
+    text = "T(i,j) = B(i,j) * C(i,f) * D(j,f); A(i,g) = T(i,j) * E(j,g)"
+    fmt = Format({"B": "cc", "T": "cc", "C": "dd", "D": "dd", "E": "dd",
+                  "A": "dd"})
+    sch = {"T": Schedule(loop_order=("i", "j", "f")),
+           "A": Schedule(loop_order=("i", "j", "g"))}
+    dims = {"i": n, "j": n, "f": f, "g": f}
+    arrays = {"B": ((rng.random((n, n)) < 0.2)
+                    * rng.integers(-3, 4, (n, n))).astype(float),
+              **{t: rng.integers(-3, 4, (n, f)).astype(float)
+                 for t in "CDE"}}
+    kops.reset_launch_counts()
+    cp = compile_program(text, fmt, sch, dims, fuse=fuse)
+    assert cp.device.type == "cuda"
+    got = cp(arrays)
+    if fuse:
+        assert cp.stats["fused_stages"] == 2
+        assert kops.launch_counts()["coo_to_levels"] >= 1
+    want = compile_program(text, fmt, sch, dims, fuse=fuse,
+                           device="cpu")(arrays)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].to_dense(), want[k].to_dense())

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert {"repro_torch.core.torch_backend", "repro_torch.kernels.ops",
             "repro_torch.core.bsr_bridge", "repro_torch.kernels.spmm_bsr",
             "repro_torch.kernels.sddmm_bsr",
-            "repro_torch.kernels.bsr_attention"} <= set(mods)
+            "repro_torch.kernels.bsr_attention", "repro_torch.core.simulator",
+            "repro_torch.core.program",
+            "repro_torch.kernels.coo_levels"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -83,7 +85,8 @@ def _entry_calls():
     from repro_torch.core.custard import lower
     from repro_torch.core.schedule import Format, Schedule
     from repro_torch.core.torch_backend import (CompiledExpr, compile_expr,
-                                                execute_expr, execute_graph)
+                                                compile_program, execute_expr,
+                                                execute_graph)
     from repro_torch.kernels import ops as kops
 
     fmt = Format({"B": "cc", "c": "c"})
@@ -103,6 +106,11 @@ def _entry_calls():
                                              sch, arrays, dims),
         "execute_graph": lambda: execute_graph(
             low.graph, low.build_inputs(arrays), low.dims, low.result_vars),
+        "compile_program": lambda: compile_program(
+            "T(i,k) = B(i,j) * C(j,k); x(i) = T(i,k) * d(k)", fmt,
+            {"T": Schedule(loop_order=("i", "j", "k")),
+             "x": Schedule(loop_order=("i", "k"))},
+            {"i": 2, "j": 2, "k": 2}),
         "sam_primitive": lambda: kops.sam_primitive("mul_reduce"),
         "accumulate_coo": lambda: co.accumulate_coo(
             np.zeros(0, np.int64), np.zeros(0, np.float32),
@@ -112,8 +120,8 @@ def _entry_calls():
 
 @pytest.mark.parametrize("entry", ["compile_expr", "compile_expr_bsr",
                                    "CompiledExpr", "execute_expr",
-                                   "execute_graph", "sam_primitive",
-                                   "accumulate_coo"])
+                                   "execute_graph", "compile_program",
+                                   "sam_primitive", "accumulate_coo"])
 def test_entry_points_refuse_without_gpu(entry):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -288,7 +288,7 @@ def test_every_primitive_has_a_fallback():
         assert kops.sam_primitive(name, "cpu") is impls["fallback"]
     cuda = {n for n, impls in kops.SAM_PRIMITIVES.items() if "cuda" in impls}
     assert cuda == {"keyed_segment_sum", "keyed_union_reduce", "mul_reduce",
-                    "intersect_mul_reduce"}
+                    "intersect_mul_reduce", "coo_to_levels"}
 
 
 def test_register_primitive_requires_fallback_first():
@@ -321,15 +321,18 @@ def test_cpu_tensors_never_launch():
     q = torch.ones((1, 2, 4))
     kops.bsr_flash_attention(q, q, q, torch.zeros((1, 1), dtype=torch.int32),
                              bq=2, bkv=2)
+    kops.SAM_PRIMITIVES["coo_to_levels"]["cuda"](
+        torch.tensor([1, 5]), torch.ones(2, dtype=torch.bool), [3, 2], [2, 2])
     assert kops.launch_counts() == {
         "scatter_workspace": 0, "segment_reduce": 0, "fused_imr": 0,
-        "spmm_bsr": 0, "sddmm_bsr": 0, "bsr_attention": 0}
+        "spmm_bsr": 0, "sddmm_bsr": 0, "bsr_attention": 0,
+        "coo_to_levels": 0}
 
 
 def test_build_is_lazy_and_keyed_by_source_hash():
     assert _build._LIB is None               # importing built nothing
     names = [p.name for p in _build.sources()]
-    assert names == ["bsr_attention.cu", "fused_stream.cu",
+    assert names == ["bsr_attention.cu", "coo_levels.cu", "fused_stream.cu",
                      "scatter_workspace.cu", "sddmm_bsr.cu",
                      "segment_reduce.cu", "spmm_bsr.cu"]
     path = _build.library_path()
