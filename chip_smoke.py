@@ -55,18 +55,26 @@ Phases:
       gave it, and fused_imr through the intersect_mul_reduce entry on
       sorted streams with NA = 4M, NB = 1M, num_slots = 2**20. The
       block-sparse kernels are also held on a fully masked q block (zeros)
-      and in bfloat16; coo_to_levels also at (l)'s shape.
+      and in bfloat16; coo_to_levels also at (l)'s shape. sddmm_bsr is also
+      held on standard-normal float32 at (h)'s shape, each element within
+      the worst case of 3xTF32 against float64; bsr_attention is timed in
+      bfloat16 at (j); and the CUDA-core kernels that the tensor-core
+      route replaced at (h) and (j) are timed in turns with it (new, old,
+      old, new).
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
-each of (g)-(j) and read after it: its kernel must have launched there, and
-(g)-(i) must report block size 128 and no fallback call. They are zeroed
+each of (g)-(j) and read after it: its kernel must have launched there,
+(g)-(i) must report block size 128 and no fallback call, and sddmm_bsr and
+bsr_attention must have launched only their tensor-core kernels (the
+launches by route are printed). They are zeroed
 before (k), (k2) and (l) too: coo_to_levels and a reduce kernel must have
 launched in (k), and no call of (k) may regrow its recorded capacities.
 fused_imr's counter is zeroed before its own entry call in (f) and read
 after it. Any mismatch or error exits non-zero. The last lines printed are
-the ``kernels`` JSON line, the card's name and power limit from
-nvidia-smi, and the ``ok`` JSON line.
+the ``kernels`` JSON line (with ``bound_ms`` under the rule at
+``PRODUCT_OPS_PER_S`` and ``fp32_bound_ms`` beside it), the card's name
+and power limit from nvidia-smi, and the ``ok`` JSON line.
 """
 from __future__ import annotations
 
@@ -85,6 +93,15 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 20260
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory bandwidth (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 on the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
+# A kernel's bound is max(bytes / HBM rate, operations / rate): for a
+# matrix product on float32 data the rate is three TF32 passes (3xTF32
+# keeps the float32 tolerances below; one pass does not), for bfloat16 data
+# the bf16 rate, and for anything else the FP32 rate. fp32_bound_ms keeps
+# the earlier rule (every operation at the FP32 rate) beside it.
+PRODUCT_OPS_PER_S = {"float32": TF32_OPS_PER_S / 3,
+                     "bfloat16": BF16_OPS_PER_S}
 # (i) against its float64 oracle: float32 scores and float32 sums over up
 # to 4096 keys a row leave errors near 1e-6; 1e-4 leaves room for that
 ATTN_TOL = 1e-4
@@ -577,6 +594,18 @@ def main() -> int:
     bs, d_model, d_ff, tokens = 128, 3072, 8192, 4096
     s_len, hd, heads, win = 8192, 128, 24, 32
 
+    per_route = {}
+
+    def check_routes(tag, kernel):
+        """The phase's calls of a two-route kernel all took the tensor
+        cores (no CUDA-core launch)."""
+        per_route[tag] = kops.route_counts()
+        got = per_route[tag].get(kernel)
+        if got is not None and (got["tensor_cores"] < 1
+                                or got["cuda_cores"]):
+            raise AssertionError(f"({tag}) {kernel} routes {got}")
+        log(f"[{tag}] launches by route {per_route[tag]}")
+
     def run_bsr(tag, label, kind, kernel, expr, fmts, dims, arrays, want,
                 check=check_equal):
         kops.reset_launch_counts()
@@ -587,6 +616,7 @@ def main() -> int:
                 or st["fallback_calls"] or per_phase[tag][kernel] < 1):
             raise AssertionError(f"({tag}) {label}: stats {st}, launches "
                                  f"{per_phase[tag]}")
+        check_routes(tag, kernel)
 
     # (g) block-pruned FFN up-projection: W1^T (d_ff x d_model) @ X^T
     nbr, nbc = d_ff // bs, d_model // bs
@@ -653,6 +683,7 @@ def main() -> int:
     per_phase["j"] = kops.launch_counts()
     if per_phase["j"]["bsr_attention"] != 2:
         raise AssertionError(f"(j) launches {per_phase['j']}")
+    check_routes("j", "bsr_attention")
     for causal, out in outs.items():
         if out.shape != q_all.shape or not torch.isfinite(out).all():
             raise AssertionError(f"(j) causal={causal}: not finite")
@@ -783,6 +814,11 @@ def main() -> int:
                                  f"tolerance {tol})")
         return err
 
+    def paired_ms(new, old):
+        """The kernel and the CUDA-core kernel its route replaced, timed in
+        turns on the same inputs: new, old, old, new."""
+        return [event_ms(fn) for fn in (new, old, old, new)]
+
     def timed_library(name, library):
         """Time one PyTorch library call, or None where there is none or it
         does not run."""
@@ -796,10 +832,14 @@ def main() -> int:
             return None
 
     def report(name, launches, kernel, plain, library, nbytes, nops, where,
-               tol=0.0, flat=lambda out: out, per_call=1):
+               tol=0.0, flat=lambda out: out, per_call=1,
+               rate=FP32_OPS_PER_S):
+        """Hold a kernel against its plain version and time both; ``rate``
+        is the operation rate of its bound (``PRODUCT_OPS_PER_S`` for the
+        matrix products)."""
         err = held(name, flat(kernel()), flat(plain()), where, tol)
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = nops / FP32_OPS_PER_S
+        t_ops = nops / rate
         row = {"name": name, "route": "cuda",
                "source": KERNEL_META[name][0],
                "replaces": KERNEL_META[name][1], "launches": launches,
@@ -807,6 +847,7 @@ def main() -> int:
                "plain_ms": event_ms(plain), "bound_ms": max(t_bytes, t_ops)
                * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else
                "operations", "library_ms": timed_library(name, library),
+               "fp32_bound_ms": max(t_bytes, nops / FP32_OPS_PER_S) * 1e3,
                "shape": where, "bytes": nbytes}
         # CUDA events time the wrapper call as the engine pays it, host
         # launch gaps included; the profiler splits out device time
@@ -825,7 +866,8 @@ def main() -> int:
         log(f"[f] {name} at {where}: ms {row['ms']:.4f} (again after the "
             f"profile {row['ms_again']:.4f}; {dev}) plain_ms "
             f"{row['plain_ms']:.4f} library_ms {lib} bound_ms "
-            f"{row['bound_ms']:.4f} ({row['bound_by']}) max_abs_err {err}")
+            f"{row['bound_ms']:.4f} ({row['bound_by']}; fp32_bound_ms "
+            f"{row['fp32_bound_ms']:.4f}) max_abs_err {err}")
         return row
 
     for name in ("scatter_workspace", "segment_reduce"):
@@ -945,7 +987,8 @@ def main() -> int:
         + n_brow * bsz * cc.shape[1] * 4,
         2 * n_live * bsz * bsz * cc.shape[1],
         f"(g) n_brow={n_brow} max_nnz={bm.shape[1]} nnzb={nnzb} bs={bsz} "
-        f"K={cc.shape[0]} N={cc.shape[1]}"))
+        f"K={cc.shape[0]} N={cc.shape[1]}",
+        rate=PRODUCT_OPS_PER_S["float32"]))
     del bsr_w
 
     kw = seen["h"]["sddmm_bsr"][-1]
@@ -960,7 +1003,46 @@ def main() -> int:
         lambda: torch.bmm(a3[sr], b3[sc].transpose(1, 2)),
         2 * nnzb * 4 + (sa.numel() + sb.numel() + nnzb * sbs * sbs) * 4,
         2 * nnzb * sbs * sbs * sa.shape[1],
-        f"(h) nnzb={nnzb} bs={sbs} K={sa.shape[1]}"))
+        f"(h) nnzb={nnzb} bs={sbs} K={sa.shape[1]}",
+        rate=PRODUCT_OPS_PER_S["float32"]))
+
+    out_cc = torch.empty((nnzb, sbs, sbs), device="cuda")
+    turns = paired_ms(
+        lambda: sddmm_bsr(sr, sc, sa, sb, sbs),
+        lambda: _build.call("sam_sddmm_bsr_f32", sr.data_ptr(),
+                            sc.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+                            out_cc.data_ptr(), nnzb, sbs, sa.shape[1],
+                            sa.shape[0], sb.shape[0]))
+    log("[f] sddmm_bsr at (h), tensor cores against the CUDA-core kernel "
+        "in turns (new, old, old, new): " + ", ".join(
+            f"{t:.4f}" for t in turns) + " ms")
+    del out_cc
+
+    # (h)'s shape on standard-normal float32: every element against the
+    # float64 product, within the worst case of 3xTF32 (the dropped lo*lo
+    # term and two residual roundings, 3 * 2^-22 a product) plus float32
+    # summation (K * 2^-24), times sum_k |a_k b_k|; one TF32 pass would
+    # fail it many times over
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    an, bn = (torch.randn(x.shape, device="cuda", generator=g)
+              for x in (sa, sb))
+    got_n = sddmm_bsr(sr, sc, an, bn, sbs)
+    a64 = an.double().view(-1, sbs, an.shape[1])[sr.long()]
+    b64 = bn.double().view(-1, sbs, bn.shape[1])[sc.long()].transpose(1, 2)
+    err_n = (got_n.double() - torch.bmm(a64, b64)).abs()
+    limit = ((3 * 2.0 ** -22 + an.shape[1] * 2.0 ** -24)
+             * torch.bmm(a64.abs(), b64.abs()))
+    worst = float((err_n / limit).max())
+    plain_err = float((got_n - sddmm_bsr_plain(sr, sc, an, bn, sbs)).abs()
+                      .max())
+    if not torch.isfinite(got_n).all() or worst > 1.0:
+        raise AssertionError(f"sddmm_bsr on normal data: error reaches "
+                             f"{worst} of its 3xTF32 bound")
+    log(f"[f] sddmm_bsr at (h) on standard-normal float32: largest error "
+        f"{float(err_n.max()):.3e} against float64, {worst:.4f} of the "
+        f"per-element 3xTF32 bound; max abs diff from the plain version "
+        f"{plain_err:.3e}")
+    del an, bn, got_n, a64, b64, err_n, limit
 
     def attention_mask(kv, n_q, n_kv, causal):
         """Dense boolean (S_q, S_kv) mask of a kv_idx (for the library)."""
@@ -985,10 +1067,23 @@ def main() -> int:
                 q_all[None], k_all[None], v_all[None], attn_mask=dense_mask),
             4 * q_all.numel() * 4 + kv_all.numel() * 4, 4 * hd * pairs,
             f"(j) BH={heads} S={s_len} D={hd} causal={causal}",
-            tol=KERNEL_TOL["float32"])
+            tol=KERNEL_TOL["float32"], rate=PRODUCT_OPS_PER_S["float32"])
         del dense_mask
         if not causal:
             kernels.append(row)
+        out_cc = torch.empty_like(q_all)
+        turns = paired_ms(
+            lambda: bsr_flash_attention(q_all, k_all, v_all, kv_all, bq=bs,
+                                        bkv=bs, causal=causal),
+            lambda: _build.call(
+                "sam_bsr_attention_f32", kv_all.data_ptr(), q_all.data_ptr(),
+                k_all.data_ptr(), v_all.data_ptr(), out_cc.data_ptr(), heads,
+                s_len, s_len, hd, n_win, win, bs, bs, hd ** -0.5,
+                int(causal)))
+        log(f"[f] bsr_attention at (j) causal={causal}, tensor cores against "
+            f"the CUDA-core kernel in turns (new, old, old, new): "
+            + ", ".join(f"{t:.4f}" for t in turns) + " ms")
+        del out_cc
 
     # the path's own head (i): a fully masked q block, and bfloat16
     kw = seen["i"]["bsr_attention"][-1]
@@ -1017,13 +1112,31 @@ def main() -> int:
         return bsr_flash_attention(qi_, ki_, vi_, idx_i, bq=bs, bkv=bs)
 
     dev_i, kern_i = profiled_device_ms(one_head, "bsr_attention")
-    bound_i = (4 * hd * attention_pairs(kv_win, bs, bs, n_win, False)
-               / FP32_OPS_PER_S * 1e3)
+    ops_i = 4 * hd * attention_pairs(kv_win, bs, bs, n_win, False)
     log(f"[f] bsr_attention at (i) BH=1 S={qi_.shape[1]} D={qi_.shape[2]}: "
         f"ms {event_ms(one_head):.4f}, device " + (
             "not measured" if dev_i is None else
             f"{dev_i:.4f}, of it the kernel {kern_i:.4f}")
-        + f", bound_ms {bound_i:.4f}")
+        + f", bound_ms {ops_i / PRODUCT_OPS_PER_S['float32'] * 1e3:.4f} "
+        f"(fp32_bound_ms {ops_i / FP32_OPS_PER_S * 1e3:.4f})")
+
+    # (j) in bfloat16: the card's rate for a bf16 model's attention
+    qb_all, kb_all, vb_all = (x.bfloat16() for x in (q_all, k_all, v_all))
+    err_b = held("bsr_attention",
+                 bsr_flash_attention(qb_all, kb_all, vb_all, kv_all, bq=bs,
+                                     bkv=bs),
+                 bsr_flash_attention_plain(qb_all, kb_all, vb_all, kv_all,
+                                           bq=bs, bkv=bs),
+                 "(j) in bfloat16", KERNEL_TOL["bfloat16"])
+    ops_j = 4 * hd * heads * attention_pairs(kv_win, bs, bs, n_win, False)
+    bound_b = max(ops_j / PRODUCT_OPS_PER_S["bfloat16"],
+                  4 * qb_all.numel() * 2 / HBM_BYTES_PER_S) * 1e3
+    ms_b = event_ms(lambda: bsr_flash_attention(qb_all, kb_all, vb_all,
+                                                kv_all, bq=bs, bkv=bs))
+    log(f"[f] bsr_attention at (j) in bfloat16, causal=False: ms "
+        f"{ms_b:.4f}, bound_ms {bound_b:.4f} (bf16 rate), max abs err "
+        f"{err_b} against the plain version")
+    del qb_all, kb_all, vb_all
     for name, fn, args in (
             ("spmm_bsr", spmm_bsr, (bm, ci, bp.bfloat16(), cc.bfloat16())),
             ("sddmm_bsr", sddmm_bsr, (sr, sc, sa.bfloat16(), sb.bfloat16(),
@@ -1064,6 +1177,7 @@ def main() -> int:
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                "workloads": workloads, "launches_by_phase": per_phase,
+               "launches_by_route": per_route,
                "kernels": measured}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -41,10 +41,16 @@ _SIGNATURES = {
     "sam_spmm_bsr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
     "sam_sddmm_bsr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
     "sam_sddmm_bsr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
+    "sam_sddmm_bsr_tc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
+    "sam_sddmm_bsr_tc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
     "sam_bsr_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _I, _P],
     "sam_bsr_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P],
+    "sam_bsr_attention_tc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _I, _P],
+    "sam_bsr_attention_tc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _I, _P],
     "sam_coo_levels_level": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _P,
                              _LL, _P, _P, _P, _P, _P, _LL, _P],
 }

@@ -2,13 +2,21 @@
 
 Replaces ``repro/kernels/bsr_attention.py::bsr_flash_attention``. The TPU
 kernel walks the grid (batch*head, q block, kv slot) in order with the
-accumulator and the softmax statistics in VMEM. The CUDA kernel
-(``csrc/bsr_attention.cu``) gives one CTA up to 64 query rows of one q
-block and lets it stream the block's kv slots in chunks of 64 positions
+accumulator and the softmax statistics in VMEM. The CUDA kernels
+(``csrc/bsr_attention.cu``) give one CTA up to 64 query rows of one q
+block and let it stream the block's kv slots in chunks of kv positions
 through shared memory, with an online softmax in float32.
 
 It is bound by operations at the model's shapes (4 * D FLOPs per allowed
-(query, key) pair). This first version runs float32 FMA on the CUDA cores.
+(query, key) pair). Two routes, chosen from the shape alone (``route``):
+
+* ``"tensor_cores"`` for bq, bkv >= 16 and a head dim that is a multiple
+  of 8 and at most 128: FlashAttention-2's shape on ``mma.sync``, with
+  ``cp.async`` copies of K and V overlapping the products; float32 in
+  3xTF32 (within ``3 * 2^-22`` of each exact product), bfloat16 in one
+  bf16 pass (P rounded to bfloat16 for P V); softmax in float32;
+* ``"cuda_cores"`` for every other shape (head dims up to 256): float32
+  FMA, the first version.
 
 Layout (as in the reference):
   q       : (BH, S_q, D) float32 or bfloat16
@@ -30,9 +38,21 @@ from typing import Optional
 import torch
 
 from . import _build
+from .sddmm_bsr import ROUTES, _aligned
 from .spmm_bsr import _DTYPES, _check_bs
 
 MAX_HEAD_DIM = 256
+TENSOR_CORE_MAX_HEAD_DIM = 128    # above it, O's fragments alone would
+                                  # take 128 registers a thread
+
+
+def route(bq: int, bkv: int, d: int) -> str:
+    """The kernel a CUDA call with these shapes launches (module
+    docstring): ``"tensor_cores"`` or ``"cuda_cores"``."""
+    if (min(bq, bkv) >= 16 and d % 8 == 0
+            and 0 < d <= TENSOR_CORE_MAX_HEAD_DIM):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _scale(scale: Optional[float], d: int) -> float:
@@ -80,7 +100,9 @@ def bsr_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Block-sparse attention over the kv blocks that ``kv_idx`` lists for
     each q block (module docstring for the layout).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``route``, counted in ``bsr_flash_attention.route_launches`` beside the
+    total ``bsr_flash_attention.launches``.
     """
     args = (q, k, v, kv_idx)
     if all(t.device.type == "cpu" for t in args):
@@ -110,15 +132,20 @@ def bsr_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"bsr_flash_attention: {bh} batch*heads is above "
                          f"65535")
     idx = kv_idx.to(torch.int32).contiguous()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel():
-        _build.call(f"sam_bsr_attention_{_DTYPES[q.dtype]}", idx.data_ptr(),
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    bh, s_q, k.shape[1], d, n_qblk, max_kv, bq, bkv,
+        way = route(bq, bkv, d)
+        entry = "sam_bsr_attention_" + ("tc_" if way == "tensor_cores"
+                                        else "")
+        _build.call(entry + _DTYPES[q.dtype], idx.data_ptr(), q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_q,
+                    k.shape[1], d, n_qblk, max_kv, bq, bkv,
                     _scale(scale, d), int(causal))
         bsr_flash_attention.launches += 1
+        bsr_flash_attention.route_launches[way] += 1
     return out
 
 
 bsr_flash_attention.launches = 0
+bsr_flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

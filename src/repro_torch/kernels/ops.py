@@ -186,9 +186,18 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
+def route_counts() -> dict:
+    """Launches by route (``"tensor_cores"``, ``"cuda_cores"``) of the
+    wrappers that choose between two kernels, by kernel name."""
+    return {name: dict(fn.route_launches) for name, fn in _COUNTED.items()
+            if hasattr(fn, "route_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 # -- BCSR bookkeeping (numpy copies of ``repro/kernels/ops.py``) -------------

@@ -2,11 +2,19 @@
 
 Replaces ``repro/kernels/sddmm_bsr.py::sddmm_bsr``. The TPU kernel runs
 the grid (sampled block, K tile) in order into a VMEM accumulator. The CUDA
-kernel (``csrc/sddmm_bsr.cu``) gives one CTA each tile of at most 64 x 64
-of a sampled block and lets it walk K itself through shared memory.
+kernels (``csrc/sddmm_bsr.cu``) give each CTA a sampled block, or a tile of
+one, and let it walk K itself through shared memory.
 
-It is bound by operations at the bridge's shapes (2 * nnzb * bs^2 * K
-FLOPs). This first version runs float32 FMA on the CUDA cores.
+At the bridge's shapes the operations (2 * nnzb * bs^2 * K FLOPs) and the
+output write bound it about equally. Two routes, chosen from the shape
+alone (``route``):
+
+* ``"tensor_cores"`` for 16 <= bs <= 128 when the rows of ``a`` and ``b``
+  are 16-byte aligned (K a multiple of 4 for float32, of 8 for bfloat16):
+  one CTA a block, ``mma.sync`` with a ``cp.async`` ring, float32 in
+  3xTF32 (within ``3 * 2^-22`` of each exact product, so integers up to
+  2^11 multiply exactly), bfloat16 in one bf16 pass;
+* ``"cuda_cores"`` for every other shape: float32 FMA, the first version.
 
 Layout (as in the reference):
   rows, cols : (nnzb,) int32 block coordinates of the sampled blocks
@@ -22,6 +30,25 @@ import torch
 
 from . import _build
 from .spmm_bsr import _DTYPES, _check_bs
+
+ROUTES = ("tensor_cores", "cuda_cores")
+
+
+def route(bs: int, k_dim: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with these shapes launches (module
+    docstring): ``"tensor_cores"`` or ``"cuda_cores"``."""
+    per_16_bytes = 16 // dtype.itemsize
+    if 16 <= bs <= 128 and k_dim % per_16_bytes == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on a 16-byte boundary (a view may
+    start inside its storage), as the tensor-core kernels copy 16 bytes at
+    a time."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def sddmm_bsr_plain(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
@@ -39,7 +66,9 @@ def sddmm_bsr(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, bs: int) -> torch.Tensor:
     """out[i] = a[rows[i]*bs : +bs] @ b[cols[i]*bs : +bs].T.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``route``, counted in ``sddmm_bsr.route_launches`` beside the total
+    ``sddmm_bsr.launches``.
     """
     args = (rows, cols, a, b)
     if all(t.device.type == "cpu" for t in args):
@@ -59,15 +88,19 @@ def sddmm_bsr(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
     nnzb = rows.shape[0]
     r = rows.to(torch.int32).contiguous()
     c = cols.to(torch.int32).contiguous()
-    a = a.contiguous()
-    b = b.contiguous()
+    a = _aligned(a)
+    b = _aligned(b)
     out = torch.empty((nnzb, bs, bs), dtype=a.dtype, device=a.device)
     if nnzb:
-        _build.call(f"sam_sddmm_bsr_{_DTYPES[a.dtype]}", r.data_ptr(),
-                    c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    nnzb, bs, a.shape[1], a.shape[0], b.shape[0])
+        way = route(bs, a.shape[1], a.dtype)
+        entry = "sam_sddmm_bsr_" + ("tc_" if way == "tensor_cores" else "")
+        _build.call(entry + _DTYPES[a.dtype], r.data_ptr(), c.data_ptr(),
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(), nnzb, bs,
+                    a.shape[1], a.shape[0], b.shape[0])
         sddmm_bsr.launches += 1
+        sddmm_bsr.route_launches[way] += 1
     return out
 
 
 sddmm_bsr.launches = 0
+sddmm_bsr.route_launches = dict.fromkeys(ROUTES, 0)

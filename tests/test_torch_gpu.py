@@ -8,8 +8,12 @@ fully masked q block (zeros), and at extents that are not multiples of
 128; attention on random data within a stated tolerance. The engines on
 CUDA must return the same FiberTree as on the CPU. ``coo_to_levels`` must
 equal its plain version bit for bit, under capacity overflow too, and a
-fused program on the card must equal the same program on the CPU. This
-file needs no JAX, so it runs on a GPU machine as it is:
+fused program on the card must equal the same program on the CPU.
+``sddmm_bsr`` and ``bsr_flash_attention`` choose between a tensor-core and
+a CUDA-core kernel by shape; each case checks which route's counter
+advanced, and ``sddmm_bsr`` on standard-normal float32 must stay within
+the per-element worst case of 3xTF32. This file needs no JAX, so it runs
+on a GPU machine as it is:
 
     python -m pytest -q tests/test_torch_gpu.py
 """
@@ -21,7 +25,9 @@ from repro_torch.core.bsr_bridge import BsrEngine
 from repro_torch.core.schedule import Format, Schedule
 from repro_torch.core.torch_backend import (CompiledExpr, compile_expr,
                                             compile_program)
+from repro_torch.kernels import bsr_attention as attn_mod
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import sddmm_bsr as sddmm_mod
 from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
                                                bsr_flash_attention_plain)
 from repro_torch.kernels.coo_levels import coo_to_levels, coo_to_levels_plain
@@ -165,7 +171,9 @@ def test_spmm_bsr_equals_plain(cuda, bs, n, dtype):
 @pytest.mark.parametrize("bs,k,dtype", [
     (1, 40, torch.float32), (8, 72, torch.float32),
     (64, 128, torch.float32), (128, 200, torch.float32),
-    (128, 64, torch.bfloat16), (8, 24, torch.bfloat16)])
+    (128, 64, torch.bfloat16), (8, 24, torch.bfloat16),
+    (16, 96, torch.float32), (32, 40, torch.bfloat16),
+    (64, 130, torch.float32)])
 def test_sddmm_bsr_equals_plain(cuda, bs, k, dtype):
     rng = np.random.default_rng(bs + k)
     m_blk, n_blk = max(2, 384 // bs), max(3, 256 // bs)
@@ -175,10 +183,67 @@ def test_sddmm_bsr_equals_plain(cuda, bs, k, dtype):
             _ints(rng, (m_blk * bs, k), dtype),
             _ints(rng, (n_blk * bs, k), dtype)]
     before = sddmm_bsr.launches
+    routes = dict(sddmm_bsr.route_launches)
     got = sddmm_bsr(*[a.to(cuda) for a in args], bs)
     assert sddmm_bsr.launches == before + 1
+    way = sddmm_mod.route(bs, k, dtype)
+    assert sddmm_bsr.route_launches[way] == routes[way] + 1
     want = sddmm_bsr_plain(*args, bs)
     assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def _route_advanced(fn, call):
+    """The route whose counter ``call`` advanced by one (and no other)."""
+    before = dict(fn.route_launches)
+    call()
+    moved = {k: fn.route_launches[k] - before[k] for k in before}
+    assert sorted(moved.values()) == [0, 1], moved
+    return max(moved, key=moved.get)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,want", [(8, "cuda_cores"),
+                                     (128, "tensor_cores")])
+def test_sddmm_bsr_takes_its_route_by_block_size(cuda, bs, want):
+    rng = np.random.default_rng(bs)
+    rows, cols = np.nonzero(rng.random((3, 2)) < 0.7)
+    args = [torch.as_tensor(rows.astype(np.int32)),
+            torch.as_tensor(cols.astype(np.int32)),
+            _ints(rng, (3 * bs, 128), torch.float32),
+            _ints(rng, (2 * bs, 128), torch.float32)]
+    out = []
+    way = _route_advanced(sddmm_bsr, lambda: out.append(
+        sddmm_bsr(*[a.to(cuda) for a in args], bs)))
+    assert way == want == sddmm_mod.route(bs, 128, torch.float32)
+    assert torch.equal(out[0].cpu(), sddmm_bsr_plain(*args, bs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [64, 128])
+@pytest.mark.parametrize("k", [128, 200])
+def test_sddmm_bsr_normal_data_within_the_3xtf32_bound(cuda, bs, k):
+    """Non-integer float32 runs 3xTF32 on the tensor cores: each element
+    within (3 * 2^-22 + K * 2^-24) * sum_k |a_k b_k| of the float64
+    product (a single TF32 pass fails this many times over)."""
+    rng = np.random.default_rng(bs * k)
+    m_blk, n_blk = 384 // bs, 256 // bs
+    rows, cols = np.nonzero(rng.random((m_blk, n_blk)) < 0.6)
+    a = rng.standard_normal((m_blk * bs, k)).astype(np.float32)
+    b = rng.standard_normal((n_blk * bs, k)).astype(np.float32)
+    out = []
+    way = _route_advanced(sddmm_bsr, lambda: out.append(sddmm_bsr(
+        torch.as_tensor(rows.astype(np.int32)).to(cuda),
+        torch.as_tensor(cols.astype(np.int32)).to(cuda),
+        torch.as_tensor(a).to(cuda), torch.as_tensor(b).to(cuda), bs)))
+    assert way == "tensor_cores"
+    a3 = a.astype(np.float64).reshape(-1, bs, k)[rows]
+    b3 = b.astype(np.float64).reshape(-1, bs, k)[cols]
+    exact = a3 @ b3.transpose(0, 2, 1)
+    limit = ((3 * 2.0 ** -22 + k * 2.0 ** -24)
+             * (np.abs(a3) @ np.abs(b3).transpose(0, 2, 1)))
+    got = out[0].cpu().double().numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - exact) <= limit).all()
 
 
 @pytest.mark.gpu
@@ -186,7 +251,9 @@ def test_sddmm_bsr_equals_plain(cuda, bs, k, dtype):
     (1, 32, False, torch.float32), (8, 64, True, torch.float32),
     (64, 128, False, torch.float32), (128, 128, True, torch.float32),
     (128, 100, False, torch.float32), (64, 256, True, torch.float32),
-    (128, 128, True, torch.bfloat16), (8, 64, False, torch.bfloat16)])
+    (128, 128, True, torch.bfloat16), (8, 64, False, torch.bfloat16),
+    (16, 64, True, torch.float32), (32, 40, False, torch.bfloat16),
+    (32, 72, True, torch.float32)])
 def test_bsr_attention_equals_plain(cuda, bs, d, causal, dtype):
     rng = np.random.default_rng(bs + d)
     bh, n_blk = 2, max(4, 512 // bs)
@@ -196,10 +263,13 @@ def test_bsr_attention_equals_plain(cuda, bs, d, causal, dtype):
     q, k, v = (torch.as_tensor(rng.standard_normal((bh, s, d)).astype(
         np.float32)).to(dtype) for _ in range(3))
     before = bsr_flash_attention.launches
+    routes = dict(bsr_flash_attention.route_launches)
     got = bsr_flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
                               torch.as_tensor(kv_idx).to(cuda), bq=bs,
                               bkv=bs, causal=causal).cpu()
     assert bsr_flash_attention.launches == before + 1
+    way = attn_mod.route(bs, bs, d)
+    assert bsr_flash_attention.route_launches[way] == routes[way] + 1
     want = bsr_flash_attention_plain(q, k, v, torch.as_tensor(kv_idx),
                                      bq=bs, bkv=bs, causal=causal)
     assert got.dtype == dtype
@@ -207,6 +277,29 @@ def test_bsr_attention_equals_plain(cuda, bs, d, causal, dtype):
     # float32: summation order only; bfloat16: one rounding of the output
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,d,want", [(8, 64, "cuda_cores"),
+                                       (128, 100, "cuda_cores"),
+                                       (128, 128, "tensor_cores")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_attention_takes_its_route_by_shape(cuda, bs, d, want, dtype):
+    rng = np.random.default_rng(bs + d)
+    n_blk = max(2, 256 // bs)
+    s = n_blk * bs
+    kv_idx = torch.as_tensor(kops.sliding_window_kv_idx(n_blk, n_blk, 2))
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, s, d)).astype(
+        np.float32)).to(dtype) for _ in range(3))
+    out = []
+    way = _route_advanced(bsr_flash_attention, lambda: out.append(
+        bsr_flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                            kv_idx.to(cuda), bq=bs, bkv=bs)))
+    assert way == want == attn_mod.route(bs, bs, d)
+    want_out = bsr_flash_attention_plain(q, k, v, kv_idx, bq=bs, bkv=bs)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out[0].cpu().float(), want_out.float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
