@@ -51,24 +51,27 @@ Phases:
       [4096, 2**25, 8], 2**24 unique sorted keys plus 1024 pad rows, at the
       engine's bucketed capacities and with every capacity half the
       level's count (overflow), and on an empty and a one-row input;
+  (l2) the same at extents that are not powers of two, dims
+      [4099, 33554393, 7] (the kernel's multiply-shift quotients);
   (f) every kernel against its plain PyTorch version at the shapes (c)-(k)
       gave it, and fused_imr through the intersect_mul_reduce entry on
       sorted streams with NA = 4M, NB = 1M, num_slots = 2**20. The
       block-sparse kernels are also held on a fully masked q block (zeros)
       and in bfloat16; coo_to_levels also at (l)'s shape. sddmm_bsr is also
-      held on standard-normal float32 at (h)'s shape, each element within
-      the worst case of 3xTF32 against float64; bsr_attention is timed in
-      bfloat16 at (j); and the CUDA-core kernels that the tensor-core
-      route replaced at (h) and (j) are timed in turns with it (new, old,
-      old, new).
+      held on standard-normal float32 at (h)'s shape, and spmm_bsr at
+      (g)'s, each element within the worst case of 3xTF32 against
+      float64; spmm_bsr and bsr_attention are timed in bfloat16 at (g) and
+      (j); the CUDA-core kernels that the tensor-core route replaced at
+      (g), (h) and (j) are timed in turns with it (new, old, old, new); and
+      coo_to_levels is timed at (k), (l) and (l2).
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
 each of (g)-(j) and read after it: its kernel must have launched there,
-(g)-(i) must report block size 128 and no fallback call, and sddmm_bsr and
-bsr_attention must have launched only their tensor-core kernels (the
-launches by route are printed). They are zeroed
-before (k), (k2) and (l) too: coo_to_levels and a reduce kernel must have
+(g)-(i) must report block size 128 and no fallback call, and spmm_bsr,
+sddmm_bsr and bsr_attention must have launched only their tensor-core
+kernels (the launches by route are printed). They are zeroed
+before (k), (k2), (l) and (l2) too: coo_to_levels and a reduce kernel must have
 launched in (k), and no call of (k) may regrow its recorded capacities.
 fused_imr's counter is zeroed before its own entry call in (f) and read
 after it. Any mismatch or error exits non-zero. The last lines printed are
@@ -80,6 +83,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -322,7 +326,7 @@ def profiled_device_ms(fn, match, reps=20, per_call=1):
         if match in evt.key:
             mine += evt.self_device_time_total
             recorded += evt.count
-            name = evt.key.split("::")[-1].split("(")[0]
+            name = re.search(rf"\w*{match}\w*", evt.key).group(0)
             split[name] = split.get(name, 0.0) + evt.self_device_time_total
     if not recorded:
         return None, None
@@ -795,6 +799,36 @@ def main() -> int:
         f"{counts_l} exact and equal to the plain version at caps {caps_l} "
         f"and at half the counts (overflow); N=0 and N=1 equal too")
 
+    # -- (l2) the same at extents that are not powers of two ----------------
+    dims_l2 = [4099, 33554393, 7]
+    space = 4099 * 33554393 * 7
+    raw = torch.unique(torch.randint(0, space, (n_l + (1 << 16),),
+                                     device="cuda", generator=g))
+    pick = torch.randperm(raw.numel(), device="cuda", generator=g)[:n_l]
+    keys_l2 = torch.cat([raw[pick.sort().values],
+                         torch.full((1024,), co.PAD_KEY, device="cuda")])
+    valid_l2 = keys_l2 != co.PAD_KEY
+    del raw, pick
+    counts_l2, pref = [], keys_l2[:n_l]
+    for d in reversed(dims_l2):
+        counts_l2.insert(0, int(torch.unique(pref).numel()))
+        pref = pref // d
+    caps_l2 = [_bucket_cap(c) for c in counts_l2]
+    kops.reset_launch_counts()
+    for caps in (caps_l2, [c // 2 for c in counts_l2]):
+        got = coo_to_levels(keys_l2, valid_l2, dims_l2, caps)
+        coo_equal(got, coo_to_levels_plain(keys_l2, valid_l2, dims_l2, caps),
+                  f"(l2) caps {caps}")
+        if [int(c) for c in got[2]] != counts_l2:
+            raise AssertionError(f"(l2) counts {got[2]} != {counts_l2}")
+    torch.cuda.synchronize()
+    per_phase["l2"] = kops.launch_counts()
+    if per_phase["l2"]["coo_to_levels"] != 2:
+        raise AssertionError(f"(l2) launches {per_phase['l2']}")
+    log(f"[l2] coo_to_levels on N={keys_l2.numel()} dims {dims_l2}: counts "
+        f"{counts_l2} exact and equal to the plain version at caps "
+        f"{caps_l2} and at half the counts (overflow)")
+
     # -- (f) kernels against their plain versions ----------------------------
     # each kernel is timed at the last input a warm (plan-cached) call of
     # each workload handed it; the kernels line carries the largest of
@@ -990,6 +1024,51 @@ def main() -> int:
         f"K={cc.shape[0]} N={cc.shape[1]}",
         rate=PRODUCT_OPS_PER_S["float32"]))
     del bsr_w
+    bm32, ci32 = (x.to(torch.int32).contiguous() for x in (bm, ci))
+    out_cc = torch.empty((n_brow * bsz, cc.shape[1]), device="cuda")
+    turns = paired_ms(
+        lambda: spmm_bsr(bm, ci, bp, cc),
+        lambda: _build.call("sam_spmm_bsr_f32", bm32.data_ptr(),
+                            ci32.data_ptr(), bp.data_ptr(), cc.data_ptr(),
+                            out_cc.data_ptr(), n_brow, bm.shape[1], nnzb,
+                            bsz, cc.shape[0], cc.shape[1]))
+    log("[f] spmm_bsr at (g), tensor cores against the CUDA-core kernel "
+        "in turns (new, old, old, new): " + ", ".join(
+            f"{t:.4f}" for t in turns) + " ms")
+    held("spmm_bsr", out_cc, spmm_bsr_plain(bm, ci, bp, cc),
+         "(g), the CUDA-core kernel")
+    del out_cc
+
+    # (g)'s shape on standard-normal float32: every element against the
+    # float64 product, within (3 * 2^-22 + K * 2^-24) * sum_k |a_k c_k|,
+    # K the row's live slots times bs (the bound sddmm_bsr is held to)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bn = torch.randn(bp.shape, device="cuda", generator=g)
+    bn[-1] = 0
+    cn = torch.randn(cc.shape, device="cuda", generator=g)
+    got_n = spmm_bsr(bm, ci, bn, cn)
+    n_bcol = -(-cc.shape[0] // bsz)
+    w64 = torch.zeros((n_brow, n_bcol, bsz, bsz), dtype=torch.float64,
+                      device="cuda")
+    w64[torch.arange(n_brow, device="cuda").repeat_interleave(
+        bm.shape[1])[live.reshape(-1)], ci[live].long()] = bn[
+            bm[live].long()].double()
+    w64 = w64.permute(0, 2, 1, 3).reshape(n_brow * bsz, n_bcol * bsz)[
+        :, :cc.shape[0]]
+    err_n = (got_n.double() - w64 @ cn.double()).abs()
+    k_row = (live.sum(1).double() * bsz).repeat_interleave(bsz)[:, None]
+    limit = (3 * 2.0 ** -22 + k_row * 2.0 ** -24) * (w64.abs()
+                                                     @ cn.double().abs())
+    worst = float((err_n / limit.clamp_min(1e-300)).max())
+    plain_err = float((got_n - spmm_bsr_plain(bm, ci, bn, cn)).abs().max())
+    if not torch.isfinite(got_n).all() or bool((err_n > limit).any()):
+        raise AssertionError(f"spmm_bsr on normal data: error reaches "
+                             f"{worst} of its 3xTF32 bound")
+    log(f"[f] spmm_bsr at (g) on standard-normal float32: largest error "
+        f"{float(err_n.max()):.3e} against float64, {worst:.4f} of the "
+        f"per-element 3xTF32 bound; max abs diff from the plain version "
+        f"{plain_err:.3e}")
+    del bn, cn, got_n, w64, err_n, k_row, limit
 
     kw = seen["h"]["sddmm_bsr"][-1]
     sr, sc, sa, sb, sbs = kw["rows"], kw["cols"], kw["a"], kw["b"], kw["bs"]
@@ -1144,6 +1223,15 @@ def main() -> int:
         plain = spmm_bsr_plain if name == "spmm_bsr" else sddmm_bsr_plain
         err = held(name, fn(*args), plain(*args), "bfloat16")
         log(f"[f] {name} in bfloat16 at the same shape: max abs err {err}")
+    bf_args = (bm, ci, bp.bfloat16(), cc.bfloat16())
+    ops_g = 2 * n_live * bsz * bsz * cc.shape[1]
+    bound_g = max(ops_g / PRODUCT_OPS_PER_S["bfloat16"],
+                  (bp.numel() + cc.numel() + n_brow * bsz * cc.shape[1]) * 2
+                  / HBM_BYTES_PER_S) * 1e3
+    log(f"[f] spmm_bsr at (g) in bfloat16: ms "
+        f"{event_ms(lambda: spmm_bsr(*bf_args)):.4f}, bound_ms "
+        f"{bound_g:.4f} (bf16 rate)")
+    del bf_args
 
     # coo_to_levels at (k)'s intermediate (the row of the kernels line) and
     # at (l); no single PyTorch call computes it, so it has no library time
@@ -1161,7 +1249,9 @@ def main() -> int:
 
     for tag, kw in (("k", seen["k"]["coo_to_levels"][-1]),
                     ("l", {"keys": keys_l, "valid": valid_l,
-                           "dims_list": dims_l, "caps": caps_l})):
+                           "dims_list": dims_l, "caps": caps_l}),
+                    ("l2", {"keys": keys_l2, "valid": valid_l2,
+                            "dims_list": dims_l2, "caps": caps_l2})):
         ck, cv, cd, cc = kw["keys"], kw["valid"], kw["dims_list"], kw["caps"]
         row = report(
             "coo_to_levels", per_phase[tag]["coo_to_levels"],
@@ -1169,10 +1259,10 @@ def main() -> int:
             lambda: coo_to_levels_plain(ck, cv, cd, cc), None,
             coo_bytes(ck.numel(), cc), 0,
             f"({tag}) N={ck.numel()} dims={list(cd)} caps={list(cc)}",
-            flat=coo_flat, per_call=4 * len(cd))
+            flat=coo_flat, per_call=4)       # launches a call, N > 0
         if tag == "k":
             kernels.append(row)
-    del keys_l, valid_l
+    del keys_l, valid_l, keys_l2, valid_l2
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

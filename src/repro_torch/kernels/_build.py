@@ -39,6 +39,9 @@ _SIGNATURES = {
     "sam_fused_imr_f64": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
     "sam_spmm_bsr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
     "sam_spmm_bsr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
+    "sam_spmm_bsr_tc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
+    "sam_spmm_bsr_tc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,
+                             _P],
     "sam_sddmm_bsr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
     "sam_sddmm_bsr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
     "sam_sddmm_bsr_tc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
@@ -51,8 +54,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _F, _I, _P],
     "sam_bsr_attention_tc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _I, _P],
-    "sam_coo_levels_level": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _P,
-                             _LL, _P, _P, _P, _P, _P, _LL, _P],
+    "sam_coo_levels": [_P, _P, _LL, _I, _LL, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

@@ -38,8 +38,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .sddmm_bsr import ROUTES, _aligned
-from .spmm_bsr import _DTYPES, _check_bs
+from .spmm_bsr import _DTYPES, ROUTES, _aligned, _check_bs
 
 MAX_HEAD_DIM = 256
 TENSOR_CORE_MAX_HEAD_DIM = 128    # above it, O's fragments alone would

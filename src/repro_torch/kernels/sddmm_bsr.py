@@ -29,9 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .spmm_bsr import _DTYPES, _check_bs
-
-ROUTES = ("tensor_cores", "cuda_cores")
+from .spmm_bsr import _DTYPES, ROUTES, _aligned, _check_bs
 
 
 def route(bs: int, k_dim: int, dtype: torch.dtype) -> str:
@@ -41,14 +39,6 @@ def route(bs: int, k_dim: int, dtype: torch.dtype) -> str:
     if 16 <= bs <= 128 and k_dim % per_16_bytes == 0:
         return "tensor_cores"
     return "cuda_cores"
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous and starting on a 16-byte boundary (a view may
-    start inside its storage), as the tensor-core kernels copy 16 bytes at
-    a time."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def sddmm_bsr_plain(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,

@@ -2,13 +2,21 @@
 
 Replaces ``repro/kernels/spmm_bsr.py::spmm_bsr``. The TPU kernel walks the
 grid (block row, N tile, slot) in order and keeps the output tile in VMEM
-while the row's blocks stream through the MXU. The CUDA kernel
-(``csrc/spmm_bsr.cu``) gives one CTA each output tile of a block row and
-lets it loop over the row's slots, accumulating in registers.
+while the row's blocks stream through the MXU. The CUDA kernels
+(``csrc/spmm_bsr.cu``) give one CTA each output tile of a block row and
+let it loop over the row's live slots, accumulating in registers.
 
-It is bound by operations at the bridge's shapes (2 * nnzb * bs^2 * N
-FLOPs). This first version runs float32 FMA on the CUDA cores, with both
-operand tiles staged in shared memory.
+It is bound by operations at the bridge's shapes (2 * live blocks * bs^2 *
+N FLOPs). Two routes, chosen from the shape alone (``route``):
+
+* ``"tensor_cores"`` for bs >= 16 when the rows of ``c`` are 16-byte
+  aligned (N a multiple of 4 for float32, of 8 for bfloat16): 128 x 128
+  output tiles, ``mma.sync`` fed by a ``cp.async`` ring over (slot, k
+  chunk) steps, float32 in 3xTF32 (within ``3 * 2^-22`` of each exact
+  product, so integers up to 2^11 multiply exactly), bfloat16 in one bf16
+  pass;
+* ``"cuda_cores"`` for every other shape (``bs`` 1 to 8, ragged N): float32
+  FMA with both operand tiles in shared memory, the first version.
 
 Layout (as in the reference):
   blk_map : (n_brow, max_nnz) int32, flat block per slot; nnzb pads
@@ -28,6 +36,23 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+ROUTES = ("tensor_cores", "cuda_cores")
+
+
+def route(bs: int, n: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with these shapes launches (module
+    docstring): ``"tensor_cores"`` or ``"cuda_cores"``."""
+    if bs >= 16 and n % (16 // dtype.itemsize) == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on a 16-byte boundary (a view may
+    start inside its storage), as the tensor-core kernels copy 16 bytes at
+    a time."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def spmm_bsr_plain(blk_map: torch.Tensor, col_idx: torch.Tensor,
@@ -61,7 +86,9 @@ def spmm_bsr(blk_map: torch.Tensor, col_idx: torch.Tensor,
              blocks: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """out = BCSR(blocks) @ c (module docstring for the layout).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``route``, counted in ``spmm_bsr.route_launches`` beside the total
+    ``spmm_bsr.launches``.
     """
     args = (blk_map, col_idx, blocks, c)
     if all(t.device.type == "cpu" for t in args):
@@ -87,16 +114,19 @@ def spmm_bsr(blk_map: torch.Tensor, col_idx: torch.Tensor,
                          f"column tiles")
     bm = blk_map.to(torch.int32).contiguous()
     ci = col_idx.to(torch.int32).contiguous()
-    blocks = blocks.contiguous()
-    c = c.contiguous()
+    blocks = _aligned(blocks)
+    c = _aligned(c)
     out = torch.empty((n_brow * bs, n), dtype=c.dtype, device=c.device)
     if out.numel():
-        _build.call(f"sam_spmm_bsr_{_DTYPES[c.dtype]}", bm.data_ptr(),
-                    ci.data_ptr(), blocks.data_ptr(), c.data_ptr(),
-                    out.data_ptr(), n_brow, max_nnz, blocks.shape[0] - 1, bs,
-                    k_dim, n)
+        way = route(bs, n, c.dtype)
+        entry = "sam_spmm_bsr_" + ("tc_" if way == "tensor_cores" else "")
+        _build.call(entry + _DTYPES[c.dtype], bm.data_ptr(), ci.data_ptr(),
+                    blocks.data_ptr(), c.data_ptr(), out.data_ptr(), n_brow,
+                    max_nnz, blocks.shape[0] - 1, bs, k_dim, n)
         spmm_bsr.launches += 1
+        spmm_bsr.route_launches[way] += 1
     return out
 
 
 spmm_bsr.launches = 0
+spmm_bsr.route_launches = dict.fromkeys(ROUTES, 0)

@@ -9,10 +9,12 @@ fully masked q block (zeros), and at extents that are not multiples of
 CUDA must return the same FiberTree as on the CPU. ``coo_to_levels`` must
 equal its plain version bit for bit, under capacity overflow too, and a
 fused program on the card must equal the same program on the CPU.
-``sddmm_bsr`` and ``bsr_flash_attention`` choose between a tensor-core and
-a CUDA-core kernel by shape; each case checks which route's counter
-advanced, and ``sddmm_bsr`` on standard-normal float32 must stay within
-the per-element worst case of 3xTF32. This file needs no JAX, so it runs
+``spmm_bsr``, ``sddmm_bsr`` and ``bsr_flash_attention`` choose between a
+tensor-core and a CUDA-core kernel by shape; each case checks which
+route's counter advanced, and ``spmm_bsr`` and ``sddmm_bsr`` on
+standard-normal float32 must stay within the per-element worst case of
+3xTF32. ``coo_to_levels`` is also held at extents that are not powers of
+two, with negative keys and invalid rows in the middle. This file needs no JAX, so it runs
 on a GPU machine as it is:
 
     python -m pytest -q tests/test_torch_gpu.py
@@ -28,6 +30,7 @@ from repro_torch.core.torch_backend import (CompiledExpr, compile_expr,
 from repro_torch.kernels import bsr_attention as attn_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sddmm_bsr as sddmm_mod
+from repro_torch.kernels import spmm_bsr as spmm_mod
 from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
                                                bsr_flash_attention_plain)
 from repro_torch.kernels.coo_levels import coo_to_levels, coo_to_levels_plain
@@ -144,27 +147,108 @@ def _ints(rng, shape, dtype):
                            ).to(dtype)
 
 
+def _spmm_case(bs, n, dtype, k_cut=0, seed=None, normal=False,
+               keep_first=True):
+    """(blk_map, col_idx, blocks, c) on the CPU: about 30% of the blocks
+    kept (block (0, 0) always when keep_first), block row 1 all pad slots,
+    C with K = n_bcol * bs - k_cut rows (a ragged last block column when
+    k_cut > 0)."""
+    rng = np.random.default_rng(bs + n + k_cut if seed is None else seed)
+    n_brow, n_bcol = max(2, 256 // bs), max(3, 384 // bs)
+    keep = rng.random((n_brow, n_bcol)) < 0.3
+    keep[0, 0] |= keep_first
+    keep[1] = False                             # a block row of pad slots
+    rows, cols = np.nonzero(keep)
+    bm, ci, bp = kops.bsr_from_block_coords(
+        rows, cols, np.zeros((len(rows), bs, bs), np.float32), n_brow)
+    k_dim = n_bcol * bs - k_cut
+    if normal:
+        blocks = torch.as_tensor(rng.standard_normal(bp.shape).astype(
+            np.float32)).to(dtype)
+        c = torch.as_tensor(rng.standard_normal((k_dim, n)).astype(
+            np.float32)).to(dtype)
+    else:
+        blocks, c = _ints(rng, bp.shape, dtype), _ints(rng, (k_dim, n), dtype)
+    blocks[-1] = 0                              # the appended zero block
+    return [torch.as_tensor(bm), torch.as_tensor(ci), blocks, c]
+
+
+def _check_spmm_equals_plain(cuda, args, bs, n, dtype):
+    before = spmm_bsr.launches
+    routes = dict(spmm_bsr.route_launches)
+    got = spmm_bsr(*[a.to(cuda) for a in args])
+    assert spmm_bsr.launches == before + 1
+    way = spmm_mod.route(bs, n, dtype)
+    assert spmm_bsr.route_launches[way] == routes[way] + 1
+    want = spmm_bsr_plain(*args)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bs,n,dtype", [
     (1, 200, torch.float32), (8, 96, torch.float32),
     (64, 256, torch.float32), (128, 300, torch.float32),
     (128, 128, torch.bfloat16), (8, 40, torch.bfloat16)])
 def test_spmm_bsr_equals_plain(cuda, bs, n, dtype):
-    rng = np.random.default_rng(bs + n)
-    n_brow, n_bcol = max(2, 256 // bs), max(3, 384 // bs)
-    keep = rng.random((n_brow, n_bcol)) < 0.3
-    keep[1] = False                             # a block row of pad slots
-    rows, cols = np.nonzero(keep)
-    bm, ci, bp = kops.bsr_from_block_coords(
-        rows, cols, np.zeros((len(rows), bs, bs), np.float32), n_brow)
-    args = [torch.as_tensor(bm), torch.as_tensor(ci),
-            _ints(rng, bp.shape, dtype), _ints(rng, (n_bcol * bs, n), dtype)]
-    args[2][-1] = 0                             # the appended zero block
-    before = spmm_bsr.launches
-    got = spmm_bsr(*[a.to(cuda) for a in args])
-    assert spmm_bsr.launches == before + 1
-    want = spmm_bsr_plain(*args)
-    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    # (128, 300) and (128, 128) draw no block: every slot is a pad slot
+    args = _spmm_case(bs, n, dtype, keep_first=False)
+    _check_spmm_equals_plain(cuda, args, bs, n, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,n,dtype,k_cut", [
+    (4, 100, torch.float32, 3), (4, 104, torch.bfloat16, 1),
+    (16, 200, torch.float32, 5), (16, 72, torch.bfloat16, 0),
+    (64, 96, torch.bfloat16, 17), (64, 258, torch.float32, 0),
+    (128, 302, torch.float32, 40), (128, 264, torch.float32, 100),
+    (128, 136, torch.bfloat16, 9), (256, 264, torch.float32, 0),
+    (256, 136, torch.bfloat16, 200), (256, 130, torch.float32, 7)])
+def test_spmm_bsr_equals_plain_with_ragged_k(cuda, bs, n, dtype, k_cut):
+    args = _spmm_case(bs, n, dtype, k_cut)
+    _check_spmm_equals_plain(cuda, args, bs, n, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,n,want", [(4, 128, "cuda_cores"),
+                                       (128, 130, "cuda_cores"),
+                                       (16, 128, "tensor_cores"),
+                                       (128, 256, "tensor_cores")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_bsr_takes_its_route_by_shape(cuda, bs, n, want, dtype):
+    args = _spmm_case(bs, n, dtype)
+    out = []
+    way = _route_advanced(spmm_bsr, lambda: out.append(
+        spmm_bsr(*[a.to(cuda) for a in args])))
+    assert way == want == spmm_mod.route(bs, n, dtype)
+    assert torch.equal(out[0].cpu(), spmm_bsr_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,n,k_cut", [(64, 200, 0), (128, 256, 0),
+                                        (128, 132, 50), (256, 128, 0)])
+def test_spmm_bsr_normal_data_within_the_3xtf32_bound(cuda, bs, n, k_cut):
+    """Non-integer float32 runs 3xTF32 on the tensor cores: each element
+    within (3 * 2^-22 + K * 2^-24) * sum_k |a_k c_k| of the float64
+    product, K the row's live slots times bs."""
+    bm, ci, bp, c = _spmm_case(bs, n, torch.float32, k_cut, seed=bs * n,
+                               normal=True)
+    out = []
+    way = _route_advanced(spmm_bsr, lambda: out.append(spmm_bsr(
+        bm.to(cuda), ci.to(cuda), bp.to(cuda), c.to(cuda))))
+    assert way == "tensor_cores"
+    dense = torch.zeros((bm.shape[0] * bs, -(-c.shape[0] // bs) * bs),
+                        dtype=torch.float64)
+    for r, s in zip(*np.nonzero((bm < bp.shape[0] - 1).numpy())):
+        col = int(ci[r, s]) * bs
+        dense[r * bs:(r + 1) * bs, col:col + bs] += bp[bm[r, s]].double()
+    dense = dense[:, :c.shape[0]]
+    exact = dense @ c.double()
+    live = (bm < bp.shape[0] - 1).sum(1).double() * bs
+    limit = ((3 * 2.0 ** -22 + live.repeat_interleave(bs)[:, None]
+              * 2.0 ** -24) * (dense.abs() @ c.double().abs()))
+    got = out[0].cpu().double()
+    assert torch.isfinite(got).all()
+    assert ((got - exact).abs() <= limit).all()
 
 
 @pytest.mark.gpu
@@ -394,6 +478,38 @@ def test_coo_to_levels_equals_plain(cuda, kind, overflow):
             assert g.dtype == w.dtype == dtype and g.shape == w.shape
             assert torch.equal(g.cpu(), w), (part, lvl)
     assert [int(c) for c in got[2]] == counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [[7, 13, 5], [4099, 33554393, 7],
+                                  [3, 1, 5, 1]])
+@pytest.mark.parametrize("overflow", [False, True])
+def test_coo_to_levels_odd_extents_negative_key_invalid_rows(cuda, dims,
+                                                             overflow):
+    """Extents that are not powers of two (the kernel's multiply-shift
+    quotients), negative valid keys (its floor-division branch), invalid
+    rows in the middle holding any key, over several 4096-row tiles;
+    overflow at every level."""
+    rng = np.random.default_rng(sum(dims))
+    space = int(np.prod(dims))
+    keys = np.unique(rng.integers(-space // 8, space, 20_000))
+    valid = rng.random(keys.size) > 0.1
+    valid[0] = True                              # the most negative key
+    keys[~valid] = rng.integers(-2 ** 62, 2 ** 62, int((~valid).sum()))
+    keys = np.concatenate([keys, np.full(5, PAD_KEY)]).astype(np.int64)
+    valid = np.concatenate([valid, np.zeros(5, bool)])
+    keys_t, valid_t = torch.as_tensor(keys), torch.as_tensor(valid)
+    assert (keys[valid] < 0).any()
+    counts = [int(c) for c in
+              coo_to_levels_plain(keys_t, valid_t, dims, [1] * len(dims))[2]]
+    caps = ([max(c // 2, 1) for c in counts] if overflow
+            else [c + 7 for c in counts])
+    got = coo_to_levels(keys_t.to(cuda), valid_t.to(cuda), dims, caps)
+    want = coo_to_levels_plain(keys_t, valid_t, dims, caps)
+    for part in range(3):
+        for lvl, (g, w) in enumerate(zip(got[part], want[part])):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.cpu(), w), (part, lvl)
 
 
 @pytest.mark.gpu

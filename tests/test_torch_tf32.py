@@ -14,6 +14,11 @@ up to summation order) and shows, at the shapes of the block-sparse path:
 * a single TF32 pass fails both, by far;
 * integer data up to 2^11 splits with ``lo == 0`` and multiplies exactly.
 
+``spmm_bsr`` runs the same contract over a block row: its live slots'
+blocks times C's rows, one m16n8k8 step of 8 k at a time. An emulation
+of that order stays inside the same bound with K the row's live slots times
+the block size, and is exact on integers up to 2^11.
+
 It also checks the register mapping the float32 attention kernel uses to
 feed P from its score accumulators straight into the P V product, and the
 wrappers' route choice, which depends on the shape alone.
@@ -25,6 +30,7 @@ import torch
 from repro_torch.kernels import bsr_attention as attn_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sddmm_bsr as sddmm_mod
+from repro_torch.kernels import spmm_bsr as spmm_mod
 
 K_H = 128          # (h)'s K, and the head dim of llama3.2-3b-bsr
 ATTN_TOL = 2e-5    # a kernel against its plain version, float32
@@ -199,6 +205,75 @@ def test_attention_route_depends_on_the_shape_alone(bq, bkv, d, want):
     assert attn_mod.route(bq, bkv, d) == want
 
 
+def _block_row_3xtf32(blocks, c_rows):
+    """One block row of spmm_bsr as its tensor-core kernel sums it: the
+    live slots in order, each block's k in steps of 8, every step adding
+    lo*hi, hi*lo, hi*hi into float32 accumulators (each product of a step
+    is exact in float32; the step's sum is a float32 matmul)."""
+    a = torch.cat(list(blocks), dim=1)          # (bs, slots * bs)
+    ah, al = split(a)
+    bh, bl = split(c_rows)
+    acc = torch.zeros((a.shape[0], c_rows.shape[1]))
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        acc = acc + al[:, ks] @ bh[ks]
+        acc = acc + ah[:, ks] @ bl[ks]
+        acc = acc + ah[:, ks] @ bh[ks]
+    return acc
+
+
+@pytest.mark.parametrize("bs,slots", [(128, 6), (64, 9), (16, 3)])
+def test_3xtf32_spmm_block_row_stays_inside_the_worst_case_bound(bs, slots):
+    rng = np.random.default_rng(bs + slots)
+    blocks = rng.standard_normal((slots, bs, bs)).astype(np.float32)
+    c_rows = rng.standard_normal((slots * bs, 96)).astype(np.float32)
+    a64 = np.concatenate(list(blocks.astype(np.float64)), axis=1)
+    exact = a64 @ c_rows.astype(np.float64)
+    k = slots * bs                    # the row's live slots times bs
+    bound = (3 * 2.0 ** -22 + k * 2.0 ** -24) * (np.abs(a64)
+                                                 @ np.abs(c_rows))
+    got = _block_row_3xtf32(torch.as_tensor(blocks), torch.as_tensor(c_rows))
+    ratio = np.abs(got.double().numpy() - exact) / bound
+    assert ratio.max() <= 1.0
+    one_pass = (tf32_rna(torch.as_tensor(a64).float())
+                @ tf32_rna(torch.as_tensor(c_rows))).double().numpy()
+    # one TF32 pass breaks it (by less at large K, where the summation
+    # term of the bound grows)
+    assert (np.abs(one_pass - exact) / bound).max() > 1
+
+
+def test_3xtf32_spmm_block_row_is_exact_on_integers_up_to_2_11():
+    rng = np.random.default_rng(11)
+    bs, slots = 128, 4
+    # K * 2^11 * 2^4 = 2^24: every float32 partial sum is an exact integer
+    blocks = rng.integers(-2 ** 11, 2 ** 11 + 1, (slots, bs, bs)
+                          ).astype(np.float32)
+    c_rows = rng.integers(-2 ** 4, 2 ** 4 + 1, (slots * bs, 64)
+                          ).astype(np.float32)
+    got = _block_row_3xtf32(torch.as_tensor(blocks), torch.as_tensor(c_rows))
+    want = (np.concatenate(list(blocks.astype(np.float64)), axis=1)
+            @ c_rows.astype(np.float64))
+    assert np.array_equal(got.double().numpy(), want)
+
+
+@pytest.mark.parametrize("bs,n,dtype,want", [
+    (1, 4096, torch.float32, "cuda_cores"),
+    (2, 4096, torch.float32, "cuda_cores"),
+    (4, 4096, torch.bfloat16, "cuda_cores"),
+    (8, 4096, torch.float32, "cuda_cores"),
+    (16, 4096, torch.float32, "tensor_cores"),
+    (32, 300, torch.float32, "tensor_cores"),
+    (64, 4096, torch.bfloat16, "tensor_cores"),
+    (128, 4096, torch.float32, "tensor_cores"),
+    (256, 200, torch.bfloat16, "tensor_cores"),
+    (128, 4098, torch.float32, "cuda_cores"),      # rows not 16-byte aligned
+    (128, 301, torch.float32, "cuda_cores"),
+    (128, 4100, torch.bfloat16, "cuda_cores"),
+    (256, 4100, torch.float32, "tensor_cores")])
+def test_spmm_route_depends_on_the_shape_alone(bs, n, dtype, want):
+    assert spmm_mod.route(bs, n, dtype) == want
+
+
 def test_cpu_calls_count_no_route():
     kops.reset_launch_counts()
     a = torch.ones((256, 128))
@@ -207,6 +282,10 @@ def test_cpu_calls_count_no_route():
     q = torch.ones((1, 256, 128))
     attn_mod.bsr_flash_attention(q, q, q, torch.zeros((2, 1),
                                                       dtype=torch.int32))
+    spmm_mod.spmm_bsr(torch.zeros((2, 1), dtype=torch.int32),
+                      torch.zeros((2, 1), dtype=torch.int32),
+                      torch.ones((2, 128, 128)), a)
     assert kops.route_counts() == {
+        "spmm_bsr": {"tensor_cores": 0, "cuda_cores": 0},
         "sddmm_bsr": {"tensor_cores": 0, "cuda_cores": 0},
         "bsr_attention": {"tensor_cores": 0, "cuda_cores": 0}}
