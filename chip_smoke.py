@@ -24,6 +24,13 @@ Phases:
       then the same loop at 1024^3 and 1% density, whose 2**20-key result
       keeps the collapse on scatter_workspace in mul_pair mode;
   (e) Plus3 X(i,j) = B + C + D, 1024 x 1024 at 5% density each;
+  (m) (d)'s product with split {i: 4} and parallelize {i: 4}: four lanes
+      run one after another and merge in one keyed reduce (segment_reduce,
+      the key space being 4096^2); the result must equal (d)'s bit for bit;
+  (n) a batch of 16 SpMSpM 1024 at 1% (d2's shape, a seed a member)
+      through execute_batch on one plan: each member must equal its own
+      single call and the oracle, and scatter_workspace must run in
+      mul_pair mode;
   (g)-(j) the block-sparse (b-format) path at the full widths of
       llama3.2-3b-bsr (d_model 3072, d_ff 8192, 24 heads of 128, window
       4096 = 32 blocks of 128), through compile_expr -> BsrEngine:
@@ -63,11 +70,16 @@ Phases:
       float64; spmm_bsr and bsr_attention are timed in bfloat16 at (g) and
       (j); the CUDA-core kernels that the tensor-core route replaced at
       (g), (h) and (j) are timed in turns with it (new, old, old, new); and
-      coo_to_levels is timed at (k), (l) and (l2).
+      coo_to_levels is timed at (k), (l) and (l2). fused_imr's bound counts
+      a's value and output key and b's value only at the hits, in 32-byte
+      sectors.
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
-each of (g)-(j) and read after it: its kernel must have launched there,
+(m) and (n) and read after each: segment_reduce must have launched in (m)
+and scatter_workspace in (n) (the two reduce kernels' launches in the
+kernels line are those of (b)-(e), (m) and (n)). They are zeroed again
+before each of (g)-(j) and read after it: its kernel must have launched there,
 (g)-(i) must report block size 128 and no fallback call, and spmm_bsr,
 sddmm_bsr and bsr_attention must have launched only their tensor-core
 kernels (the launches by route are printed). They are zeroed
@@ -348,7 +360,7 @@ def main() -> int:
         return 2
     from repro_torch.core import coord_ops as co
     from repro_torch.core.schedule import Format, Schedule
-    from repro_torch.core.torch_backend import (_bucket_cap,
+    from repro_torch.core.torch_backend import (CompiledExpr, _bucket_cap,
                                                 clear_compile_cache,
                                                 clear_program_cache,
                                                 compile_expr, compile_program)
@@ -553,11 +565,13 @@ def main() -> int:
     Bs, Cs = sp.csr_matrix(B), sp.csr_matrix(C)
     products = int(np.diff(Cs.indptr)[Bs.indices].sum())
     log(f"[d] B nnz {Bs.nnz}, C nnz {Cs.nnz}, products {products}")
-    run_workload("d", "SpMSpM 4096 ikj",
-                 expr_engine("X(i,j) = B(i,k) * C(k,j)",
-                             {"B": "cc", "C": "cc"}, ("i", "k", "j"),
-                             {"i": n, "j": n, "k": n}),
-                 {"B": B, "C": C}, (Bs @ Cs).toarray())
+    spmspm_d = {"B": B, "C": C}           # (m) splits the same product
+    want_d = (Bs @ Cs).toarray()
+    got_d = run_workload("d", "SpMSpM 4096 ikj",
+                         expr_engine("X(i,j) = B(i,k) * C(k,j)",
+                                     {"B": "cc", "C": "cc"}, ("i", "k", "j"),
+                                     {"i": n, "j": n, "k": n}),
+                         spmspm_d, want_d)
     del B, C, Bs, Cs
 
     # the same loop with a result of 1024 x 1024 = 2**20 keys: the collapse
@@ -592,6 +606,86 @@ def main() -> int:
                                      f"never launched")
         if not any(per_phase[t][name] for t in ("c", "d", "d2", "e")):
             raise AssertionError(f"{name} never launched in (c)-(e)")
+
+    # -- (m) (d)'s product, split and parallelized over 4 lanes --------------
+    n = 4096
+    kops.reset_launch_counts()
+    got_m = run_workload(
+        "m", "SpMSpM 4096 lanes",
+        compile_expr("X(i,j) = B(i,k) * C(k,j)",
+                     Format({"B": "cc", "C": "cc"}),
+                     Schedule(loop_order=("i", "k", "j"), split={"i": 4},
+                              parallelize={"i": 4}),
+                     {"i": n, "j": n, "k": n}),
+        spmspm_d, want_d)
+    lanes_m = workloads["SpMSpM 4096 lanes"]
+    if (not np.array_equal(got_m, got_d)
+            or per_phase["m"]["segment_reduce"] < 1
+            or lanes_m["stats"]["lane_dispatches"] < 1):
+        raise AssertionError(f"(m) differs from (d) or launched "
+                             f"{per_phase['m']} with stats "
+                             f"{lanes_m['stats']}")
+    log(f"[m] equals (d) bit for bit; warm {lanes_m['warm_ms']:.3f} ms "
+        f"against (d)'s {workloads['SpMSpM 4096 ikj']['warm_ms']:.3f} "
+        f"({lanes_m['warm_ms'] / workloads['SpMSpM 4096 ikj']['warm_ms']:.3f}"
+        f"x); lane_dispatches {lanes_m['stats']['lane_dispatches']}")
+    del spmspm_d, want_d, got_d, got_m
+
+    # -- (n) a batch of 16 SpMSpM 1024, one seed a member ---------------------
+    n, members = 1024, 16
+    batch, wants = [], []
+    for m in range(members):
+        rm = np.random.default_rng(SEED + 1 + m)
+        Bm, Cm = sparse_int(rm, (n, n), 0.01), sparse_int(rm, (n, n), 0.01)
+        batch.append({"B": Bm, "C": Cm})
+        wants.append((sp.csr_matrix(Bm) @ sp.csr_matrix(Cm)).toarray())
+    dims_n = {"i": n, "j": n, "k": n}
+    beng = CompiledExpr("X(i,j) = B(i,k) * C(k,j)",
+                        Format({"B": "cc", "C": "cc"}),
+                        Schedule(loop_order=("i", "k", "j")), dims_n)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = beng.execute_batch(batch)
+    first_n = (time.perf_counter() - t0) * 1e3
+    if beng.stats["plan_misses"] != 1:
+        raise AssertionError(f"(n) warm-up batch stats {beng.stats}")
+    batch_ms = warm_ms(lambda: beng.execute_batch(batch), reps=3)
+    record_kernel_inputs("n", lambda: beng.execute_batch(batch))
+    prof_n = device_profile(lambda: beng.execute_batch(batch))
+    per_phase["n"] = kops.launch_counts()
+    single = expr_engine("X(i,j) = B(i,k) * C(k,j)", {"B": "cc", "C": "cc"},
+                         ("i", "k", "j"), dims_n)        # (d2)'s engine
+    for m, (out, arrays, want) in enumerate(zip(
+            beng.execute_batch(batch), batch, wants)):
+        dense = tree_to_dense(out)
+        check_equal(f"(n) member {m}", dense, want)
+        check_equal(f"(n) member {m} against its single call",
+                    dense, tree_to_dense(single(arrays)))
+    mul_pair = [kw["mul_pair"] for kw in
+                seen.get("n", {}).get("scatter_workspace", [])]
+    if (beng.stats["plan_misses"] != 1 or not any(mul_pair)
+            or per_phase["n"]["scatter_workspace"] < 1):
+        raise AssertionError(f"(n) stats {beng.stats}, launches "
+                             f"{per_phase['n']}, mul_pair calls {mul_pair}")
+    d2_ms = workloads["SpMSpM 1024 ikj"]["warm_ms"]
+    workloads["SpMSpM 1024 batch of 16"] = {
+        "first_ms": first_n, "warm_ms": batch_ms,
+        "member_warm_ms": batch_ms / members, "profile": prof_n,
+        "stats": dict(beng.stats),
+        "result_nnz": [int(np.count_nonzero(w)) for w in wants]}
+    idle = prof_n["idle_share"]
+    log(f"[n] {members} members equal their single calls and the oracle on "
+        f"one plan; first batch {first_n:.1f} ms, warm batch {batch_ms:.1f} "
+        f"ms = {batch_ms / members:.3f} ms a member against (d2)'s single "
+        f"warm {d2_ms:.3f} ({batch_ms / members / d2_ms:.3f}x); launches "
+        f"{per_phase['n']}")
+    log(f"[n] profiled batch {prof_n['wall_ms']:.1f} ms with "
+        f"{prof_n['device_busy_ms']:.3f} ms of kernels on the card, idle "
+        f"share " + ("not measured" if idle is None else f"{idle:.4f}"))
+    for row in prof_n["top_kernels"][:4]:
+        log(f"[n]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+    log(f"[n] engine stats {beng.stats}")
+    del batch, wants, outs
 
     # -- (g)-(j) the block-sparse path at llama3.2-3b-bsr's widths ------------
     # d_model 3072, d_ff 8192, 24 heads of 128, window 4096 tokens
@@ -906,6 +1000,8 @@ def main() -> int:
 
     for name in ("scatter_workspace", "segment_reduce"):
         rows = []
+        launches = main_counts[name] + per_phase["m"][name] + per_phase[
+            "n"][name]
         for tag in ("c", "d", "d2", "e"):
             calls = seen.get(tag, {}).get(name, [])
             if not calls:
@@ -918,7 +1014,7 @@ def main() -> int:
                 ids64 = ids.long().clamp(0, slots)
                 lib_cols = cols[:, :c_out].contiguous()
                 rows.append(report(
-                    name, main_counts[name],
+                    name, launches,
                     lambda: scatter_workspace(ids, cols, num_slots=slots,
                                               mul_pair=mp),
                     lambda: scatter_workspace_plain(ids, cols,
@@ -936,7 +1032,7 @@ def main() -> int:
                 nseg = kw["num_segments"]
                 sids64 = sids.long().clamp(0, nseg)
                 rows.append(report(
-                    name, main_counts[name],
+                    name, launches,
                     lambda: segment_reduce(vals, sids, num_segments=nseg),
                     lambda: segment_reduce_plain(vals, sids,
                                                  num_segments=nseg),
@@ -988,6 +1084,19 @@ def main() -> int:
     bv_in = torch.where(b_valid, b_vals, 0.0)
     idx = torch.searchsorted(bk_in, a_key).clamp(max=nb - 1)
     hit = bk_in[idx] == a_key
+    # the bytes the function needs: every key of a and of b once, the
+    # workspace once, and a's value and output key and b's value only at
+    # the hits, counted in the 32-byte sectors that hold them
+    hit_a = hit.nonzero().squeeze(1)
+    n_hit = hit_a.numel()
+
+    def sectors(pos, width):
+        return torch.unique(pos // (32 // width)).numel() * 32
+
+    n_hit_bytes = (sectors(hit_a, 4) + sectors(hit_a, 8)
+                   + sectors(idx[hit_a], 4))
+    log(f"[f] fused_imr: {n_hit} of {na} elements of a hit; the hits' "
+        f"gathers touch {n_hit_bytes} bytes")
     lib_ids = torch.where(hit, out_key, slots)
     lib_cols = torch.stack([a_vals * bv_in[idx], hit.float()], 1)
     kernels.append(report("fused_imr", imr_launches,
@@ -997,8 +1106,8 @@ def main() -> int:
                                              bv_in, num_slots=slots),
            lambda: torch.zeros((slots + 1, 2), device="cuda"
                                ).index_add_(0, lib_ids, lib_cols),
-           na * (8 + 4 + 8) + nb * (8 + 4) + slots * 2 * 4,
-           na * 3,
+           na * 8 + nb * 8 + slots * 2 * 4 + n_hit_bytes,
+           n_hit * 3,
            f"NA={na} NB={nb} slots={slots}"))
 
     # the block-sparse kernels, at the inputs (g)-(j) gave them

@@ -33,8 +33,21 @@ Two execution modes share the block handlers:
   not depend on the data. PyTorch runs eagerly, so a plan is a Python
   closure over those capacities rather than a traced executable; every
   term runs and multi-term expressions fuse into one keyed union reduce.
-  The sizes each stream really needed come back to the host in ONE
-  transfer per run, and a capacity overflow grows the plan and re-runs.
+  The result and the sizes each stream really needed come back to the
+  host in ONE transfer per run, and a capacity overflow grows the plan
+  and re-runs.
+
+Schedules with ``split``/``parallelize`` (§4.1/§4.4) lower through
+``custard.lower``: each parallelized term runs as N lanes, each the same
+graph restricted to its coordinate chunk. Eager PyTorch has no ``vmap``
+for ops whose output shape depends on the data, so the lanes of a plan
+run one after another at the plan's fixed per-lane capacities (the
+reference vmaps them, or shard_maps them over a device mesh), and every
+(term, lane) partial merges through ONE keyed union reduce. Results come
+back in the original coordinate space. ``execute_batch`` runs many
+same-format operand sets through one plan: they pad to one input
+signature, upload stacked (one copy per operand array), run member by
+member on the same kernels, and return in one transfer.
 
 ``b``-format (block-sparse) operands take the BSR bridge: ``compile_expr``
 routes an expression that ``bsr_bridge.bsr_pattern`` recognizes (SpMM,
@@ -51,13 +64,13 @@ them there; every other stage is a ``CompiledExpr`` with a dense host
 handoff between units.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md slice: ``split``/``parallelize`` lanes and batches, tiles and
-``mem_budget``, and ``schedule="auto"``.
+ROADMAP.md slice: tiles and ``mem_budget``, ``schedule="auto"``, and
+lanes spread over more than one GPU (``shard_lanes``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,10 +89,10 @@ PAD = co.PAD_KEY
 
 # what each unported path waits for: its entry in ROADMAP.md's list of
 # what is still to port
-_LANES_SLICE = "ROADMAP.md, still to port #1: split, lanes and batches"
 _AUTO_SLICE = ("ROADMAP.md, still to port #2: `auto` with simulator and "
                "autoschedule")
 _TILES_SLICE = "ROADMAP.md, still to port #3: tiles"
+_DIST_SLICE = "ROADMAP.md, still to port #5: distributed tiles"
 
 
 @dataclasses.dataclass
@@ -253,12 +266,16 @@ class TorchBackend:
                  out_cap: Optional[int] = None,
                  segsum: Optional[Callable] = None,
                  intersect: Optional[Callable] = None,
-                 mul_reduce: Optional[Callable] = None):
+                 mul_reduce: Optional[Callable] = None,
+                 lane: Optional[int] = None):
         self.g = graph_
         self.t = tensors
         self.dims = dims
         self.result_vars = result_vars
         self.device = torch.device(device)
+        # §4.4 parallel lane: ``chunk_n``-marked scanners restrict to this
+        # lane's coordinate chunk; None executes the full iteration space
+        self.lane = lane
         self.env: Dict[Tuple[int, str], Any] = {}
         self.final: Optional[COOResult] = None
         self.scan_caps = scan_caps
@@ -302,9 +319,20 @@ class TorchBackend:
             self.required[f"s{node.id}"] = torch.sum(lengths)
         crd, ref, sid, valid = co.scan_level(lv.seg, lv.crd, r.ref, r.valid,
                                              cap)
+        ref_valid = valid
+        chunk_n = node.params.get("chunk_n")
+        if chunk_n and self.lane is not None:
+            # split-level scanning: predicate this lane's REFERENCE stream
+            # to its contiguous coordinate chunk. The crd/key stream stays
+            # fully valid (sorted-key intersection and locate probes rely
+            # on monotone keys), while the dead references zero the
+            # out-of-chunk subtrees and collapse their fiber expansions
+            csz = -(-lv.dim // chunk_n)
+            lo = self.lane * csz
+            ref_valid = valid & (crd >= lo) & (crd < lo + csz)
         cs = CanonStream(var=node.params["var"], crd=crd, parent_idx=sid,
                          valid=valid, dim=lv.dim, parent=r.stream)
-        out = {"crd": cs, "ref": RefStream(cs, ref, valid)}
+        out = {"crd": cs, "ref": RefStream(cs, ref, ref_valid)}
         if node.params.get("bv"):
             # word-packed graphs label this edge "bv"; canonical execution
             # publishes the same coordinate stream under both port names
@@ -548,27 +576,81 @@ class _Plan:
     fn: Callable
 
 
+@dataclasses.dataclass
+class EncodedBatch:
+    """A host-encoded batched dispatch, ready for the device stage.
+
+    Produced by ``CompiledExpr.encode_batch`` (host encode), consumed by
+    ``execute_encoded`` (device execute) and ``decode_batch`` (host
+    decode), so a serving pipeline can overlap the encode of dispatch N+1
+    with the execute of dispatch N."""
+    stacked: Any                 # batch-stacked padded operand arrays
+    sig: Tuple                   # shared input signature (plan-cache key)
+    b: int                       # batch members
+    flats: List                  # members, unstacked (cap recording)
+    rep: int = 0                 # index of the largest-nnz member
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Bring device tensors to the host in ONE transfer: each is viewed as
+    bytes, the bytes are joined on the device (widest types first, so every
+    piece stays aligned), copied once, and viewed back as numpy arrays."""
+    names = sorted(tensors, key=lambda k: -tensors[k].element_size())
+    flat = [tensors[k].contiguous().reshape(-1) for k in names]
+    if not flat or flat[0].device.type == "cpu":
+        return {k: t.reshape(tensors[k].shape).numpy()
+                for k, t in zip(names, flat)}
+    blob = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+    out, off = {}, 0
+    for k, t in zip(names, flat):
+        n = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out[k] = blob[off:off + n].view(dtype).reshape(tensors[k].shape)
+        off += n
+    return out
+
+
+def _max_into(required: Dict[str, torch.Tensor], key: str,
+              r: torch.Tensor) -> None:
+    """Keep the largest need of ``key`` (over lanes, or batch members)."""
+    r = r.reshape(()).to(torch.int64)
+    required[key] = r if key not in required else torch.maximum(
+        required[key], r)
+
+
 def _run_with_growth(plan: _Plan, flat, stats: Dict[str, int],
-                     reinstall: Callable[[Dict[str, int]], _Plan]):
+                     reinstall: Callable[[Dict[str, int]], _Plan],
+                     fresh: bool):
     """Run a plan, growing bucketed capacities on overflow and retrying.
 
     Each retry can reveal larger downstream needs (truncation hid
-    elements), so loop to a fixpoint. The required sizes are stacked on
-    the device and reach the host in ONE transfer per run (a transfer per
-    capacity would synchronize once per stream).
+    elements), so loop to a fixpoint. On a plan hit the result and the
+    required sizes reach the host together in ONE transfer (a transfer per
+    capacity would synchronize once per stream). A ``fresh`` plan (just
+    recorded) and a grown one may overflow, so their runs bring the needs
+    back alone first and the result only once it fits: a retry moves no
+    result. The result comes back as numpy arrays.
     """
     for _ in range(32):
         out, required = plan.fn(flat)
         names = list(required)
-        needs = (torch.stack([required[k].reshape(()).to(torch.int64)
-                              for k in names]).cpu().tolist()
-                 if names else [])
+        dev = {f"out.{k}": v for k, v in out.items()}
+        if names:
+            dev["needs"] = torch.stack([required[k].reshape(()).to(
+                torch.int64) for k in names])
+        needs_only = fresh and bool(names)
+        host = _to_host({"needs": dev["needs"]} if needs_only else dev)
+        needs = host["needs"].tolist() if names else []
         grow = {k: _bucket_cap(n) for k, n in zip(names, needs)
                 if n > plan.caps[k]}
         if not grow:
-            return out
+            if needs_only:
+                host = _to_host(dev)
+            return {k[4:]: v for k, v in host.items()
+                    if k.startswith("out.")}
         stats["overflow_retries"] += 1
         plan = reinstall({**plan.caps, **grow})
+        fresh = True
     raise RuntimeError("compiled SAM capacity growth did not converge")
 
 
@@ -644,10 +726,58 @@ _COMPILED: Dict[Tuple, "CompiledExpr"] = {}
 _BSR: Dict[Tuple, BsrEngine] = {}
 
 
+def _stack_flats(flats: Sequence[Dict]) -> Dict:
+    """Stack same-signature padded operand sets along a new leading axis
+    (a view, not a copy, for a single set)."""
+    def stack(arrays):
+        return arrays[0][None] if len(arrays) == 1 else np.stack(arrays)
+
+    out = {}
+    for name, e in flats[0].items():
+        out[name] = {part: tuple(stack([f[name][part][i] for f in flats])
+                                 for i in range(len(e[part])))
+                     for part in ("segs", "crds")}
+        out[name]["vals"] = stack([f[name]["vals"] for f in flats])
+    return out
+
+
+def _member(tensors: Dict[str, JTensor], m: int) -> Dict[str, JTensor]:
+    """Batch member ``m`` of batch-stacked engine tensors (views)."""
+    return {name: JTensor([JLevel(lv.seg[m], lv.crd[m], lv.dim)
+                           for lv in jt.levels], jt.vals[m])
+            for name, jt in tensors.items()}
+
+
+def lane_mesh_size(par_n: int, bound: Optional[int] = None) -> int:
+    """Largest CUDA device count that can host the lane mesh: the biggest
+    divisor of ``par_n`` no larger than the available GPUs (and the
+    caller's ``bound``, e.g. serve's --devices). 1 means no useful mesh."""
+    n_dev = torch.cuda.device_count()
+    limit = min(n_dev, par_n, bound or n_dev)
+    return max((d for d in range(1, limit + 1) if par_n % d == 0),
+               default=1)
+
+
+def _check_shard_lanes(shard_lanes, par_n: int) -> None:
+    """The port's counterpart of the reference's ``_resolve_shard_lanes``.
+    ``shard_lanes``: None or False runs every lane on the engine's device
+    (a mesh of 1); True (or an int device bound) REQUIRES a mesh of 2 or
+    more GPUs and raises ``ValueError`` when none fits, as the reference
+    does. Spreading lanes over GPUs belongs to the distributed slice, so
+    where a mesh would fit it raises ``NotImplementedError``."""
+    if shard_lanes is None or shard_lanes is False:
+        return
+    bound = None if shard_lanes is True else int(shard_lanes)
+    m = lane_mesh_size(par_n, bound)
+    if m < 2:
+        raise ValueError(
+            f"cannot shard {par_n} lane(s) over {torch.cuda.device_count()} "
+            f"device(s)" + (f" with --devices {bound}" if bound else ""))
+    raise NotImplementedError(
+        f"lanes over {m} GPUs are not ported yet ({_DIST_SLICE})")
+
+
 def _refuse_unported(schedule: Schedule) -> None:
-    if schedule.split or schedule.parallelize:
-        raise NotImplementedError(
-            f"split/parallelize schedules are not ported yet ({_LANES_SLICE})")
     if schedule.tile:
         raise NotImplementedError(
             f"tiled schedules are not ported yet ({_TILES_SLICE})")
@@ -664,19 +794,22 @@ class CompiledExpr:
     2. plan lookup by input signature. A miss runs the eager backend once
        as a **capacity-recording pass** and buckets every intermediate
        stream capacity (``stats["traces"]`` counts plan builds);
-    3. the plan runs every term and fuses them with one keyed union
-       reduce; it also returns the true required sizes, so a **capacity
-       overflow** grows the plan and re-runs — results are never silently
-       truncated;
-    4. the COO result is decoded host-side into an output FiberTree.
+    3. the plan runs every term, each parallelized term lane by lane, and
+       fuses every (term, lane) partial with one keyed union reduce; it
+       also returns the true required sizes, so a **capacity overflow**
+       grows the plan and re-runs — results are never silently truncated;
+    4. the COO result is decoded host-side into an output FiberTree in
+       the ORIGINAL coordinate space (split levels re-merged).
 
-    ``device`` defaults to CUDA; with no GPU, pass ``device="cpu"`` to run
-    the plain PyTorch fallbacks.
+    ``execute_batch`` runs many same-format operand sets through one plan
+    (every member pads to one shared signature); a single call is a batch
+    of one, so both share one plan cache. ``device`` defaults to CUDA; with no GPU, pass
+    ``device="cpu"`` to run the plain PyTorch fallbacks.
     """
 
     def __init__(self, expr, fmt: Format, schedule: Schedule,
                  dims: Dict[str, int], *, use_kernels: bool = True,
-                 device=None):
+                 device=None, shard_lanes: Optional[bool] = None):
         self.device = co.resolve_device(device)
         _refuse_unported(schedule)
         self.assign: Assignment = parse(expr) if isinstance(expr, str) else expr
@@ -689,8 +822,10 @@ class CompiledExpr:
         terms = low.require_terms()
         self.signs = [t.sign for t in terms]
         self.graphs = [t.graph for t in terms]
+        self.lane_ns = [t.lane_n for t in terms]
+        self.par_n = low.par_n
         self.graph_hashes = tuple(G.structural_hash() for G in self.graphs)
-        self.rvars = low.result_vars
+        self.rvars = low.result_vars           # post-split, loop order
         self._scalar = not self.rvars
         writer = _val_writer_node(self.graphs[0])
         self._out_shape = writer.params.get("shape", ())
@@ -698,6 +833,10 @@ class CompiledExpr:
                          or "c" * len(self.rvars))
         self._mode_order = writer.params.get("mode_order")
         self._strides = [(v, low.dims[v]) for v in self.rvars]
+        # results come back in the ORIGINAL coordinate space: split result
+        # levels (vo, vi) are re-merged during output assembly
+        self._out_merge = self._build_out_merge()
+        _check_shard_lanes(shard_lanes, self.par_n)
         self._segsum = None
         self._intersect = None
         self._union_reduce = None
@@ -713,9 +852,32 @@ class CompiledExpr:
         self._level_meta: Dict[str, List[Tuple[str, int]]] = {}
         self._plans: Dict[Tuple, _Plan] = {}
         self._core_cache: Dict[Tuple, Callable] = {}
+        # sticky per-level bucket high-water for batched encodes: a stream
+        # of batches whose nnz jitters across buckets settles on ONE
+        # signature (and one plan) after warm-up
+        self._hint_highwater: Dict[str, List[int]] = {}
         self.stats = {"traces": 0, "plan_hits": 0, "plan_misses": 0,
                       "overflow_retries": 0, "calls": 0, "batch_calls": 0,
                       "lane_dispatches": 0, "sharded_dispatches": 0}
+
+    def _build_out_merge(self):
+        """Decode plan for split result levels: [(orig var, o-col, i-col or
+        None, inner chunk)] over the post-split stride columns."""
+        split_of = self.low.split_of
+        if not any(v in split_of for v in self.low.orig_result_vars):
+            return None
+        merge, i = [], 0
+        while i < len(self.rvars):
+            v = self.rvars[i]
+            if (v.endswith("o") and v[:-1] in split_of
+                    and i + 1 < len(self.rvars)
+                    and self.rvars[i + 1] == v[:-1] + "i"):
+                merge.append((v[:-1], i, i + 1, self.low.dims[v[:-1] + "i"]))
+                i += 2
+            else:
+                merge.append((v, i, None, None))
+                i += 1
+        return merge
 
     # -- operand flattening ------------------------------------------------
     def _raw_flat(self, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -737,30 +899,44 @@ class CompiledExpr:
         return _tensors_from_flat_arrays(flat, self._level_meta, self.device)
 
     # -- plan construction -------------------------------------------------
-    def _needs_fused(self) -> bool:
-        return not self._scalar and len(self.graphs) > 1
+    def _lanes_of(self, ti: int):
+        n = self.lane_ns[ti]
+        return range(n) if n > 1 else [None]
 
-    def _backend(self, ti: int, tensors, **caps) -> TorchBackend:
+    def _needs_fused(self) -> bool:
+        return (not self._scalar
+                and (len(self.graphs) > 1
+                     or any(n > 1 for n in self.lane_ns)))
+
+    def _backend(self, ti: int, tensors, lane=None, **caps) -> TorchBackend:
         return TorchBackend(self.graphs[ti], tensors, self.low.dims,
                             self.rvars, device=self.device,
                             segsum=self._segsum, intersect=self._intersect,
-                            mul_reduce=self._mul_reduce, **caps)
+                            mul_reduce=self._mul_reduce, lane=lane, **caps)
 
-    def _record_caps(self, flat) -> Dict[str, int]:
-        """Eager capacity-recording pass over one concrete padded operand
-        set; returns bucketed capacities. It runs through the same
-        dispatch entries as the plans, so on the GPU its reduces are the
-        kernels too."""
-        tensors = self._tensors_from_flat(flat)
+    def _record_caps(self, flats: Sequence[Dict]) -> Dict[str, int]:
+        """Eager capacity-recording pass over one (or, batched, every)
+        concrete padded operand set; returns bucketed capacities. Parallel
+        lanes run with their lane ids, and a laned term's caps are the max
+        over its lanes (every lane runs at the same capacities). It runs
+        through the same dispatch entries as the plans, so on the GPU its
+        reduces are the kernels too."""
         caps: Dict[str, int] = {}
         fused_need = 0
-        for ti in range(len(self.graphs)):
-            be = self._backend(ti, tensors)
-            v = be.run_streams()
-            caps.update({f"t{ti}.{k}": _bucket_cap(n)
-                         for k, n in be.caps_record.items()})
-            if isinstance(v, COOResult):
-                fused_need += int(torch.sum(v.valid))
+        for flat in flats:
+            tensors = self._tensors_from_flat(flat)
+            call_fused = 0
+            for ti in range(len(self.graphs)):
+                for lane in self._lanes_of(ti):
+                    be = self._backend(ti, tensors, lane)
+                    v = be.run_streams()
+                    for k, n in be.caps_record.items():
+                        key = f"t{ti}.{k}"
+                        caps[key] = max(caps.get(key, 0), n)
+                    if isinstance(v, COOResult):
+                        call_fused += int(torch.sum(v.valid))
+            fused_need = max(fused_need, call_fused)
+        caps = {k: _bucket_cap(n) for k, n in caps.items()}
         if self._needs_fused():
             caps["fused"] = _bucket_cap(fused_need)
         return caps
@@ -776,28 +952,42 @@ class CompiledExpr:
         for _, d in self._strides:
             bound *= d
 
-        def core(flat):
-            tensors = self._tensors_from_flat(flat)
-            required: Dict[str, torch.Tensor] = {}
-            outs = []                      # per term: COOResult or scalar
-            for ti in range(len(self.graphs)):
-                be = self._backend(ti, tensors, scan_caps=scan_caps[ti],
+        def run_term(ti, tensors, required):
+            """One term's partial. Its lanes run one after another at the
+            plan's per-lane capacities; a lane's needs are maxed."""
+            parts = []
+            for lane in self._lanes_of(ti):
+                be = self._backend(ti, tensors, lane, scan_caps=scan_caps[ti],
                                    out_cap=out_caps[ti])
-                outs.append(be.run_streams())
+                parts.append(be.run_streams())
                 for k, r in be.required.items():
-                    required[f"t{ti}.{k}"] = r
+                    _max_into(required, f"t{ti}.{k}", r)
+            if len(parts) == 1:
+                return parts[0]
+            if self._scalar:
+                return torch.stack(parts).sum()
+            return COOResult(torch.cat([c.keys for c in parts]),
+                             torch.cat([c.vals for c in parts]),
+                             torch.cat([c.valid for c in parts]),
+                             list(self._strides))
+
+        def run(tensors):
+            required: Dict[str, torch.Tensor] = {}
+            outs = [run_term(ti, tensors, required)    # COOResult or scalar
+                    for ti in range(len(self.graphs))]
             if self._scalar:
                 total = signs[0] * outs[0]
                 for s, v in zip(signs[1:], outs[1:]):
                     total = total + s * v
                 return {"scalar": total}, required
-            if len(outs) == 1:
+            if len(outs) == 1 and self.lane_ns[0] == 1:
                 coo = outs[0]
                 vals = coo.vals if signs[0] == 1 else signs[0] * coo.vals
                 return {"keys": coo.keys, "vals": vals,
                         "valid": coo.valid}, required
-            # term merge: ONE keyed union reduce combines every term's
-            # partial result (sums commute; signs fold into the values)
+            # term/lane merge: ONE keyed union reduce combines every (term,
+            # lane) partial result (sums commute; signs fold into the
+            # values; disjoint lane outputs merge by concatenation for free)
             keys = torch.cat([c.keys for c in outs])
             vals = torch.cat([c.vals if s == 1 else s * c.vals
                               for s, c in zip(signs, outs)])
@@ -807,6 +997,24 @@ class CompiledExpr:
                 key_bound=bound)
             required["fused"] = count
             return {"keys": uk, "vals": uv, "valid": uvalid}, required
+
+        def core(stacked):
+            """A batch-stacked operand set (one upload per array; a single
+            call is a batch of one): the members run one after another on
+            the same plan, their results stacked along a leading axis and
+            their needs maxed."""
+            tensors = self._tensors_from_flat(stacked)
+            required: Dict[str, torch.Tensor] = {}
+            outs = []
+            for m in range(next(iter(tensors.values())).vals.shape[0]):
+                out, req = run(_member(tensors, m))
+                outs.append(out)
+                for k, r in req.items():
+                    _max_into(required, k, r)
+            if len(outs) == 1:
+                return {k: v[None] for k, v in outs[0].items()}, required
+            return {k: torch.stack([o[k] for o in outs])
+                    for k in outs[0]}, required
 
         return core
 
@@ -821,24 +1029,70 @@ class CompiledExpr:
         self._plans[sig] = plan
         return plan
 
-    def _run_plan(self, plan: _Plan, sig, flat):
+    def _dispatch(self, sig, stacked, rep_flat):
+        """One plan-cached execution of a batch-stacked operand set; a miss
+        records capacities on ``rep_flat``. Returns the keyed-COO ``out``
+        as host arrays with a leading member axis."""
+        if any(n > 1 for n in self.lane_ns):
+            self.stats["lane_dispatches"] += 1
+        plan = self._plans.get(sig)
+        fresh = plan is None
+        if fresh:
+            self.stats["plan_misses"] += 1
+            plan = self._install_plan(sig, self._record_caps([rep_flat]))
+        else:
+            self.stats["plan_hits"] += 1
         return _run_with_growth(
-            plan, flat, self.stats,
-            lambda caps: self._install_plan(sig, caps))
+            plan, stacked, self.stats,
+            lambda caps: self._install_plan(sig, caps), fresh)
 
     # -- output assembly ---------------------------------------------------
     def _assemble_out(self, out) -> FiberTree:
+        """One member's keyed-COO ``out`` as a result ``FiberTree``."""
         if "scalar" in out:
             return FiberTree.from_dense(np.asarray(float(out["scalar"])), "")
-        return coo_to_fibertree(out["keys"], out["vals"], out["valid"],
-                                self._strides, self._out_shape,
-                                self._out_fmt, self._mode_order)
+        if self._out_merge is None:
+            return coo_to_fibertree(out["keys"], out["vals"], out["valid"],
+                                    self._strides, self._out_shape,
+                                    self._out_fmt, self._mode_order)
+        return self._assemble_unsplit(out["keys"], out["vals"], out["valid"])
 
     @property
     def orig_result_order(self) -> List[str]:
-        """The result variables in storage (loop) order — the column
-        order of ``execute_coo`` coordinates."""
+        """The ORIGINAL result variables in storage (loop) order — the
+        column order of ``execute_coo`` coordinates."""
+        if self._out_merge is not None:
+            return [m[0] for m in self._out_merge]
         return list(self.rvars)
+
+    def _live_coords(self, out) -> Tuple[np.ndarray, np.ndarray]:
+        """(coords, vals) of the live result in the ORIGINAL coordinate
+        space; one coordinate column per ``orig_result_order`` var (split
+        result levels re-merged, padding/zeros dropped)."""
+        cols, vals = decode_live_coo(out["keys"], out["vals"], out["valid"],
+                                     self._strides)
+        if self._out_merge is None:
+            return cols, vals
+        coords = np.zeros((len(cols), len(self._out_merge)), dtype=np.int64)
+        for k, (v, io, ii, chunk) in enumerate(self._out_merge):
+            coords[:, k] = (cols[:, io] if ii is None
+                            else cols[:, io] * chunk + cols[:, ii])
+        return coords, vals
+
+    def _assemble_unsplit(self, keys, vals, valid) -> FiberTree:
+        """Decode a split-space COO result back into the ORIGINAL
+        coordinate space: each (vo, vi) level pair merges to vo*chunk+vi.
+        Split padding carries only explicit zeros, which are filtered."""
+        coords, vals = self._live_coords(
+            {"keys": keys, "vals": vals, "valid": valid})
+        orig_vars = self.orig_result_order
+        shape = tuple(self.low.orig_dims[v] for v in orig_vars)
+        lhs = self.low.orig_assign.lhs
+        ft = FiberTree.from_coords(
+            shape, coords, vals,
+            self.fmt.of(lhs.tensor, len(orig_vars)) or "c" * len(orig_vars))
+        ft.mode_order = tuple(lhs.vars.index(v) for v in orig_vars)
+        return ft
 
     # -- public execution --------------------------------------------------
     def execute(self, arrays: Dict[str, np.ndarray]) -> FiberTree:
@@ -849,7 +1103,9 @@ class CompiledExpr:
                 fibertrees are built internally per the schedule).
 
         Returns:
-            The result ``FiberTree``. Equivalent to ``eng(arrays)``.
+            The result ``FiberTree`` in the ORIGINAL coordinate space
+            (split levels re-merged, padding trimmed). Equivalent to
+            ``eng(arrays)``.
 
         >>> import numpy as np
         >>> from repro_torch.core.schedule import Format, Schedule
@@ -863,16 +1119,34 @@ class CompiledExpr:
         """
         return self(arrays)
 
+    def _shared_hints(self, raws: Sequence[Dict]) -> Dict[str, List[int]]:
+        """Common bucket per compressed level: max over the operand sets,
+        so every member pads to ONE input signature."""
+        return {name: [
+            max(_bucket(r[name]["crds"][i].shape[0]) for r in raws)
+            for i in range(len(raws[0][name]["crds"]))]
+            for name in raws[0]}
+
+    def _sticky_hints(self, raws: Sequence[Dict]) -> Dict[str, List[int]]:
+        """Shared hints merged with the engine's running per-level
+        high-water, so the batch input signature is monotone over the
+        engine's lifetime: a stream of dispatches with jittering nnz
+        settles on ONE signature (and one plan) after warm-up."""
+        hints = self._shared_hints(raws)
+        for name, hs in hints.items():
+            prev = self._hint_highwater.get(name)
+            if prev is not None:
+                hs = [max(a, b) for a, b in zip(hs, prev)]
+                hints[name] = hs
+            self._hint_highwater[name] = list(hs)
+        return hints
+
     def _dispatch_out(self, flat, sig):
-        """One plan-cached execution; returns the raw keyed-COO ``out``."""
+        """One single call, run as a batch of one; returns its keyed-COO
+        ``out`` as host arrays."""
         self.stats["calls"] += 1
-        plan = self._plans.get(sig)
-        if plan is None:
-            self.stats["plan_misses"] += 1
-            plan = self._install_plan(sig, self._record_caps(flat))
-        else:
-            self.stats["plan_hits"] += 1
-        return self._run_plan(plan, sig, flat)
+        out = self._dispatch(sig, _stack_flats([flat]), flat)
+        return {k: v[0] for k, v in out.items()}
 
     def __call__(self, arrays: Dict[str, np.ndarray]) -> FiberTree:
         flat, sig = self._pad_flat(self._raw_flat(arrays))
@@ -882,18 +1156,100 @@ class CompiledExpr:
                     ) -> Tuple[Optional[np.ndarray], Any]:
         """Execute one operand set, returning the live result as a COO.
 
-        Returns ``(coords, vals)``: ``coords`` is ``(nnz, k)`` int64 with
-        one column per ``orig_result_order`` variable; scalar expressions
-        return ``(None, float)``. ``hints`` overrides the per-level input
-        buckets (``{tensor: [bucket per level]}``) so related operand sets
-        share one input signature and therefore one plan.
+        Returns ``(coords, vals)``: ``coords`` is ``(nnz, k)`` int64 in the
+        ORIGINAL coordinate space, one column per ``orig_result_order``
+        variable; scalar expressions return ``(None, float)``. ``hints``
+        overrides the per-level input buckets (``{tensor: [bucket per
+        level]}``) so related operand sets share one input signature and
+        therefore one plan.
         """
         flat, sig = self._pad_flat(self._raw_flat(arrays), hints)
         out = self._dispatch_out(flat, sig)
         if "scalar" in out:
             return None, float(out["scalar"])
-        return decode_live_coo(out["keys"], out["vals"], out["valid"],
-                               self._strides)
+        return self._live_coords(out)
+
+    def execute_many(self, arrays_list: Sequence[Dict[str, np.ndarray]]
+                     ) -> List[FiberTree]:
+        """Dispatch several operand sets as INDIVIDUAL calls sharing one
+        input signature (buckets maxed over the set and the engine's
+        high-water, as ``execute_batch`` pads), so warm traffic stays on a
+        single plan."""
+        if not arrays_list:
+            return []
+        raws = [self._raw_flat(a) for a in arrays_list]
+        hints = self._sticky_hints(raws)
+        out = []
+        for raw in raws:
+            flat, sig = self._pad_flat(raw, hints)
+            out.append(self._assemble_out(self._dispatch_out(flat, sig)))
+        return out
+
+    # -- staged batch execution (host encode / device execute / host
+    # decode, split so a serving pipeline can overlap the stages of
+    # consecutive dispatches) ---------------------------------------------
+    def encode_batch(self, arrays_list: Sequence[Dict[str, np.ndarray]]
+                     ) -> EncodedBatch:
+        """Host-side stage 1 of a batched dispatch: build the concordant
+        fibertrees, pad every member to ONE shared input signature, and
+        stack (numpy; the upload happens in ``execute_encoded``)."""
+        raws = [self._raw_flat(a) for a in arrays_list]
+        hints = self._sticky_hints(raws)
+        # the largest member, before padding: capacity recording runs just
+        # this one member eagerly, and the growth loop heals any residual
+        # undershoot from the others
+        rep = max(range(len(raws)),
+                  key=lambda i: sum(int(e["vals"].shape[0])
+                                    for e in raws[i].values()))
+        flats_sigs = [self._pad_flat(r, hints) for r in raws]
+        flats = [f for f, _ in flats_sigs]
+        return EncodedBatch(stacked=_stack_flats(flats),
+                            sig=flats_sigs[0][1], b=len(flats), flats=flats,
+                            rep=rep)
+
+    def execute_encoded(self, enc: EncodedBatch):
+        """Device stage 2: one plan-cached dispatch of an encoded batch.
+        The stacked operands upload once; the members run one after
+        another on the plan, and their results and needed sizes reach the
+        host in one transfer. Returns the keyed-COO ``out`` for
+        ``decode_batch``."""
+        self.stats["batch_calls"] += 1
+        return self._dispatch(enc.sig, enc.stacked, enc.flats[enc.rep])
+
+    def decode_batch(self, enc: EncodedBatch, out) -> List[FiberTree]:
+        """Host-side stage 3: one ``FiberTree`` per batch member."""
+        return [self._assemble_out({k: v[i] for k, v in out.items()})
+                for i in range(enc.b)]
+
+    def execute_batch(self, arrays_list: Sequence[Dict[str, np.ndarray]]
+                      ) -> List[FiberTree]:
+        """Execute many same-format operand sets in ONE plan-cached
+        dispatch.
+
+        Args:
+            arrays_list: operand sets (each as in ``execute``); all must
+                share the expression's tensor names and dims. Every
+                member pads to ONE shared input signature.
+
+        Returns:
+            One result ``FiberTree`` per operand set, in order.
+
+        >>> import numpy as np
+        >>> from repro_torch.core.schedule import Format, Schedule
+        >>> eng = compile_expr("x(i) = B(i,j) * c(j)",
+        ...                    Format({"B": "cc", "c": "c"}),
+        ...                    Schedule(loop_order=("i", "j")),
+        ...                    {"i": 2, "j": 3}, device="cpu")
+        >>> B = np.array([[1., 0., 2.], [0., 3., 0.]])
+        >>> outs = eng.execute_batch([{"B": B, "c": np.ones(3)},
+        ...                           {"B": 2 * B, "c": np.ones(3)}])
+        >>> [o.to_dense().tolist() for o in outs]
+        [[3.0, 3.0], [6.0, 6.0]]
+        """
+        if not arrays_list:
+            return []
+        enc = self.encode_batch(arrays_list)
+        return self.decode_batch(enc, self.execute_encoded(enc))
 
 
 # ---------------------------------------------------------------------------
@@ -901,7 +1257,8 @@ class CompiledExpr:
 # ---------------------------------------------------------------------------
 
 def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
-                 use_kernels: bool = True, device=None, mem_budget=None
+                 use_kernels: bool = True, device=None, mem_budget=None,
+                 shard_lanes: Optional[bool] = None
                  ) -> "CompiledExpr | BsrEngine":
     """Compile an expression once into a plan-cached engine.
 
@@ -915,11 +1272,17 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
         device: where the engine runs; CUDA by default, and an error when
             there is no GPU (pass ``device="cpu"`` for the CPU).
         mem_budget: the reference's out-of-core budget; not ported yet.
+        shard_lanes: §4.4 lane placement. None or False runs every lane
+            of a ``parallelize`` schedule on ``device``; True (or an int
+            device bound) requires a mesh of GPUs: ``ValueError`` when
+            none fits, ``NotImplementedError`` where one would (lanes over
+            GPUs belong to the distributed slice).
 
     Returns:
         The process-wide engine for this configuration: repeated calls
         with the same (expression, formats, schedule, dims, use_kernels,
-        device) return the SAME engine, so its plans are shared. A
+        device) return the SAME engine, so its plans are shared. The
+        schedule's split/parallelize spec is part of the key. A
         block-sparse contraction that ``bsr_pattern`` recognizes gets a
         ``BsrEngine``, shared by (expression, formats, schedule, dims,
         device).
@@ -959,6 +1322,11 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
             f"mem_budget routes through tiles, not ported yet "
             f"({_TILES_SLICE})")
     _refuse_unported(schedule)
+    # resolved before keying, so a refused lane placement never returns a
+    # cached engine
+    par_n = max([n for n in schedule.parallelize.values() if n > 1],
+                default=1)
+    _check_shard_lanes(shard_lanes, par_n)
     key = (expr_cache_key(assign, fmt, schedule, dims), use_kernels, str(dev))
     eng = _COMPILED.get(key)
     if eng is None:
@@ -1202,21 +1570,23 @@ class _FusedChain:
         self._plans[sig] = plan
         return plan
 
-    def _run_plan(self, plan: _Plan, sig, flat):
+    def _run_plan(self, plan: _Plan, sig, flat, fresh: bool):
         return _run_with_growth(plan, flat, self.stats,
-                                lambda caps: self._install_plan(sig, caps))
+                                lambda caps: self._install_plan(sig, caps),
+                                fresh)
 
     # -- public --------------------------------------------------------------
     def execute(self, env: Dict[str, np.ndarray]) -> FiberTree:
         self.stats["calls"] += 1
         flat, sig = _pad_flat_arrays(self._raw_flat(env), self._level_meta)
         plan = self._plans.get(sig)
-        if plan is None:
+        fresh = plan is None
+        if fresh:
             self.stats["plan_misses"] += 1
             plan = self._install_plan(sig, self._record_caps(flat))
         else:
             self.stats["plan_hits"] += 1
-        out = self._run_plan(plan, sig, flat)
+        out = self._run_plan(plan, sig, flat, fresh)
         if "scalar" in out:
             return FiberTree.from_dense(np.asarray(float(out["scalar"])), "")
         return coo_to_fibertree(out["keys"], out["vals"], out["valid"],

@@ -3,19 +3,24 @@
 Replaces ``repro/kernels/fused_stream.py::fused_imr_workspace``: the
 Gustavson inner loop in one pass. The TPU kernel probes with a ``(T, NB)``
 membership matrix against the whole *b* stream in VMEM, because Mosaic has
-no vector gather; the CUDA kernel (``csrc/fused_stream.cu``) gives each
-element of *a* one thread that binary-searches the sorted *b* keys,
-gathers, multiplies and adds ``[a*b, 1]`` into the workspace with
-``atomicAdd``. Keys stay int64 (the reference narrows them to int32).
+no vector gather. The CUDA kernel (``csrc/fused_stream.cu``) merges the
+streams tile by tile: each CTA loads 2048 elements of *a*, finds the
+window of *b* its keys can match with two warp-wide searches, stages a
+window of up to 1024 keys in shared memory (a longer one is searched in
+place), and each thread walks its run of 8 keys through the window,
+galloping from where its previous key landed. Hits add ``[a*b, 1]`` into
+the workspace with ``atomicAdd``. Keys stay int64 (the reference narrows
+them to int32).
 
-It is memory-bound on the card: *a*'s keys, values and output keys are
-read once, *b* at least once, the workspace written once; the search adds
-``log2(NB)`` dependent loads per element of *a*, mostly served by L2.
+It is memory-bound on the card: *a*'s keys are read once, coalesced; its
+values and output keys, and *b*'s values, only at hits; *b*'s keys about
+once; the workspace is written by the hits.
 
 Contract (the dispatch wrapper in ``ops.py`` establishes it): invalid
-rows of either stream are keyed ``PAD_KEY`` (int64 max), *b*'s keys are
-sorted with its padding at the end, ``b_vals`` is 0 at invalid rows, and
-``out_key`` lies in ``[0, num_slots)`` wherever *a* matches.
+rows of either stream are keyed ``PAD_KEY`` (int64 max) and *a*'s may sit
+anywhere, *b*'s keys are sorted with its padding at the end, ``b_vals``
+is 0 at invalid rows, and ``out_key`` lies in ``[0, num_slots)`` wherever
+*a* matches.
 
 Layout:
   a_key/a_vals/out_key : (NA,)   b_key/b_vals : (NB,)

@@ -13,6 +13,7 @@ and numpy (the 14 Table-1 cases are in ``test_torch_table1*.py``).
 """
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -89,12 +90,23 @@ def test_custard_copies_lower_to_the_reference_graphs(name, expr, order,
     variants = [dict(loop_order=tuple(order)),
                 dict(loop_order=tuple(order), split={order[0]: 2}),
                 dict(loop_order=tuple(order), split={order[-1]: 2},
-                     parallelize={order[-1]: 2})]
+                     parallelize={order[-1]: 2}),
+                # the lanes the engine runs: the outer variable by 4, and
+                # two split variables with the outer one parallelized
+                dict(loop_order=tuple(order), split={order[0]: 4},
+                     parallelize={order[0]: 4})]
+    if len(order) > 1:
+        variants.append(dict(loop_order=tuple(order),
+                             split={order[0]: 2, order[1]: 3},
+                             parallelize={order[0]: 2}))
     for kw in variants:
         ref = r_lower(expr, RFormat(dict(fmts)), RSchedule(**kw), DIMS)
         got = lower(expr, Format(dict(fmts)), Schedule(**kw), DIMS)
         assert ([t.graph.structural_hash() for t in got.terms]
                 == [t.graph.structural_hash() for t in ref.terms]), kw
+        assert [t.lane_n for t in got.terms] == [t.lane_n
+                                                 for t in ref.terms], kw
+        assert got.par_n == ref.par_n and got.split_of == ref.split_of, kw
         assert ((got.graph is None) == (ref.graph is None)), kw
         if ref.graph is not None:
             assert got.graph.structural_hash() == ref.graph.structural_hash()
@@ -250,7 +262,7 @@ def test_forced_tiny_capacity_regrows_and_rehits():
                        device=CPU)
     arrays = {"B": sparse(rng, (16, 10), 0.4), "C": sparse(rng, (10, 12), 0.4)}
     flat, sig = eng._pad_flat(eng._raw_flat(arrays))
-    honest = eng._record_caps(flat)
+    honest = eng._record_caps([flat])
     assert any(c > 8 for c in honest.values())
     eng._install_plan(sig, {k: 8 for k in honest})
     np.testing.assert_array_equal(eng(arrays).to_dense(),
@@ -378,16 +390,21 @@ def test_bitvector_storage_is_refused():
 @pytest.mark.parametrize("what", ["split", "parallelize", "tile", "auto",
                                   "mem_budget", "lower_auto",
                                   "lower_program"])
-def test_unported_paths_raise_not_implemented(what):
+def test_unported_paths_raise_not_implemented(what, monkeypatch):
+    # split and parallelize lanes are ported; spreading the lanes over
+    # GPUs is not, so with four GPUs a required lane mesh refuses
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     expr = "x(i) = B(i,j) * c(j)"
     fmt = Format({"B": "cc", "c": "c"})
     dims = {"i": 4, "j": 6}
     base = dict(loop_order=("i", "j"))
     calls = {
         "split": lambda: compile_expr(expr, fmt, Schedule(
-            **base, split={"j": 2}), dims, device=CPU),
+            **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU,
+            shard_lanes=True),
         "parallelize": lambda: CompiledExpr(expr, fmt, Schedule(
-            **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU),
+            **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU,
+            shard_lanes=2),
         "tile": lambda: compile_expr(expr, fmt, Schedule(
             **base, tile={"j": 2}), dims, device=CPU),
         "auto": lambda: compile_expr(expr, fmt, "auto", dims, device=CPU),
@@ -404,9 +421,12 @@ def test_unported_paths_raise_not_implemented(what):
 
 
 def test_execute_expr_split_falls_back_to_eager():
+    # the compiled engine refuses tiles, so a split and tiled schedule runs
+    # on the eager path, which strips the tiles and unsplits the result
     rng = np.random.default_rng(13)
     arrays = {"B": sparse(rng, (4, 6)), "c": sparse(rng, 6, 0.8)}
     got = execute_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc", "c": "c"}),
-                       Schedule(loop_order=("i", "j"), split={"j": 2}),
+                       Schedule(loop_order=("i", "j"), split={"j": 2},
+                                tile={"i": 2}),
                        arrays, {"i": 4, "j": 6}, device=CPU)
     np.testing.assert_array_equal(got.to_dense(), arrays["B"] @ arrays["c"])

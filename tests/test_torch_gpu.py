@@ -6,7 +6,8 @@ exact there), and must count one launch. The block-sparse kernels are
 also held at block sizes 1 to 128, in bfloat16, with ``causal``, with a
 fully masked q block (zeros), and at extents that are not multiples of
 128; attention on random data within a stated tolerance. The engines on
-CUDA must return the same FiberTree as on the CPU. ``coo_to_levels`` must
+CUDA must return the same FiberTree as on the CPU, and under split lanes
+or in a batch they must launch the reduce kernels. ``coo_to_levels`` must
 equal its plain version bit for bit, under capacity overflow too, and a
 fused program on the card must equal the same program on the CPU.
 ``spmm_bsr``, ``sddmm_bsr`` and ``bsr_flash_attention`` choose between a
@@ -114,6 +115,59 @@ def test_fused_imr_equals_plain(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+def _imr_case(kind, dtype=np.float32):
+    """Streams for ``fused_imr_workspace`` (CPU tensors) exercising one
+    corner of the tiled merge: 2048 elements of *a* a tile, a window of up
+    to 1024 *b* keys staged in shared memory."""
+    rng = np.random.default_rng(len(kind))
+    na, nb, slots, space, offset = 20_000, 9_000, 4096, 60_000, 0
+    if kind == "ragged":             # NA and NB not multiples of the tile
+        na, nb = 3 * 2048 + 5, 1037
+    if kind == "beyond int32":
+        offset = 1 << 40
+    if kind == "long window":        # sparse a over dense b: windows of
+        space = 400_000              # ~40k keys, searched in place
+        nb = 300_000
+    a_key = np.sort(rng.choice(space, na, replace=False)) + offset
+    if kind == "long window":
+        a_key = np.sort(rng.choice(space, 2500, replace=False)) + offset
+        na = a_key.size
+    a_key[rng.random(na) < 0.25] = PAD_KEY      # padding anywhere in a
+    if kind == "padding tiles":      # whole tiles of padding, and a tile
+        a_key[2048:3 * 2048] = PAD_KEY          # with one valid key
+        a_key[4 * 2048:5 * 2048] = PAD_KEY
+        a_key[4 * 2048 + 700] = np.int64(space // 2)
+    if kind == "a shuffled":         # the kernel assumes no order of a
+        rng.shuffle(a_key)
+    n_valid = 0 if kind == "b all padding" else nb - 37
+    b_key = np.full(nb, PAD_KEY, np.int64)
+    b_key[:n_valid] = np.sort(rng.choice(space, n_valid, replace=False)
+                              ) + offset
+    b_vals = np.where(np.arange(nb) < n_valid, rng.integers(-4, 5, nb), 0)
+    return [torch.as_tensor(a_key.astype(np.int64)),
+            torch.as_tensor(rng.integers(-4, 5, na).astype(dtype)),
+            torch.as_tensor(rng.integers(0, slots, na)),
+            torch.as_tensor(b_key),
+            torch.as_tensor(b_vals.astype(dtype))], slots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,dtype", [
+    ("padding anywhere", np.float32), ("padding tiles", np.float32),
+    ("long window", np.float32), ("b all padding", np.float32),
+    ("beyond int32", np.float32), ("ragged", np.float32),
+    ("a shuffled", np.float32), ("padding anywhere", np.float64)])
+def test_fused_imr_tiled_merge_equals_plain(cuda, kind, dtype):
+    args, slots = _imr_case(kind, dtype)
+    before = fused_imr_workspace.launches
+    got = fused_imr_workspace(*[x.to(cuda) for x in args], num_slots=slots)
+    assert fused_imr_workspace.launches == before + 1
+    want = fused_imr_workspace_plain(*args, num_slots=slots)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    if kind != "b all padding":
+        assert want[:, 1].sum() > 0              # the case has hits
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("expr,order,fmts", [
     ("x(i) = B(i,j) * c(j)", "ij", {"B": "cc", "c": "c"}),
@@ -138,6 +192,34 @@ def test_engine_on_the_card_equals_the_cpu(cuda, expr, order, fmts):
         assert sum(kops.launch_counts().values()) > 0
     want = CompiledExpr(expr, Format(fmts), sch, dims, device="cpu")(arrays)
     np.testing.assert_array_equal(got.to_dense(), want.to_dense())
+
+
+@pytest.mark.gpu
+def test_lanes_and_batches_on_the_card_launch_the_reduce_kernels(cuda):
+    rng = np.random.default_rng(9)
+    dims = {"i": 40, "j": 30, "k": 20}
+    expr, fmt = "X(i,j) = B(i,k) * C(k,j)", Format({"B": "cc", "C": "cc"})
+    sets = [{"B": ((rng.random((40, 20)) < 0.3)
+                   * rng.integers(1, 9, (40, 20))).astype(float),
+             "C": ((rng.random((20, 30)) < 0.3)
+                   * rng.integers(1, 9, (20, 30))).astype(float)}
+            for _ in range(3)]
+    lanes = Schedule(loop_order=("i", "k", "j"), split={"i": 4},
+                     parallelize={"i": 4})
+    kops.reset_launch_counts()
+    got = CompiledExpr(expr, fmt, lanes, dims)(sets[0])
+    counts = kops.launch_counts()
+    assert counts["segment_reduce"] + counts["scatter_workspace"] > 0
+    want = CompiledExpr(expr, fmt, lanes, dims, device="cpu")(sets[0])
+    np.testing.assert_array_equal(got.to_dense(), want.to_dense())
+    eng = CompiledExpr(expr, fmt, Schedule(loop_order=("i", "k", "j")), dims)
+    kops.reset_launch_counts()
+    outs = eng.execute_batch(sets)
+    counts = kops.launch_counts()
+    assert counts["segment_reduce"] + counts["scatter_workspace"] > 0
+    for out, arrays in zip(outs, sets):
+        np.testing.assert_array_equal(out.to_dense(),
+                                      arrays["B"] @ arrays["C"])
 
 
 # -- the block-sparse kernels -------------------------------------------------

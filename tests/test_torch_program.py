@@ -13,8 +13,9 @@
   the reference's ``coord_ops.coo_to_levels`` bit for bit, dtypes
   included, also beyond the TPU kernel's guards (capacities above 4096, a
   level extent of 2**24 and more), and under capacity overflow.
-* ``"auto"`` schedules, ``mem_budget`` and split stages are refused, each
-  naming its ROADMAP.md slice.
+* ``"auto"`` schedules and ``mem_budget`` are refused, each naming its
+  ROADMAP.md slice; a split stage runs unfused and equals the unsplit
+  program.
 """
 import numpy as np
 import pytest
@@ -334,10 +335,18 @@ def test_refusals_name_their_slice():
                            device=CPU)
     with pytest.raises(NotImplementedError, match="still to port #3"):
         tb.compile_program(pt, pf, ps, dims, mem_budget="64MB", device=CPU)
+    # a split stage is ported: it cannot fuse, so it runs as its own
+    # CompiledExpr and gives the unfused unsplit program's results
     split = {"T": Schedule(loop_order=("i", "j", "k"), split={"i": 2}),
              "A": ps["A"]}
-    with pytest.raises(NotImplementedError, match="still to port #1"):
-        tb.compile_program(pt, pf, split, dims, device=CPU)
+    arrays = CASES["sddmm_spmm"][5]()
+    got = tb.compile_program(pt, pf, split, dims, device=CPU)(arrays)
+    want = tb.compile_program(pt, pf, ps, dims, fuse=False,
+                              device=CPU)(arrays)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name].to_dense(),
+                                      want[name].to_dense())
     with pytest.raises(NotImplementedError, match="still to port #3"):
         simulate_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc"}),
                       Schedule(loop_order=("i", "j"), tile={"j": 3}),
