@@ -6,8 +6,9 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
     python3 chip_smoke.py
 
 Drives the port's paths end to end on the card: expressions
-(``repro_torch.core.torch_backend.compile_expr`` -> ``CompiledExpr`` or
-``BsrEngine``) and fused programs (``compile_program`` ->
+(``repro_torch.core.torch_backend.compile_expr`` -> ``CompiledExpr``,
+``TiledExpr`` under a memory budget, or ``BsrEngine``; ``schedule="auto"``
+through the autoscheduler) and fused programs (``compile_program`` ->
 ``CompiledProgram``), and checks every result against a float64
 numpy/scipy oracle. Operands are integer valued
 (1-8) from a fixed numpy seed, so every float32 partial sum is an exact
@@ -31,6 +32,20 @@ Phases:
       through execute_batch on one plan: each member must equal its own
       single call and the oracle, and scatter_workspace must run in
       mul_pair mode;
+  (o) out-of-core SpMM X(i,j) = B(i,k) * C(k,j), B cc 16384 x 16384 at
+      0.2%, C dd 16384 x 1024, order ikj, under mem_budget="4GB" with the
+      density hint {B: 0.002, C: 1}: auto_tile=False must refuse with the
+      untiled estimate 16,282,246,691 bytes; the tiled call must be a
+      TiledExpr of 4 tiles ({i: 2, k: 2}) equal to the oracle, record 1
+      plan miss and 3 hits, then 4 hits warm, free every tile's tensors,
+      launch segment_reduce, and peak (torch.cuda.max_memory_allocated)
+      within the budget, or else below the untiled estimate, the overshoot
+      printed as a FAULT line; the host stages are timed under cProfile;
+  (p) schedule="auto": (d)'s product resolved through the autoscheduler
+      (sparsity 0.005, one device, a schedule cache in a temporary
+      directory), run through compile_expr and equal to (d)'s oracle; a
+      second resolve must be a cache hit; then (o) with "auto" under its
+      budget: a tiled pick whose tiles fit, equal to (o)'s oracle;
   (g)-(j) the block-sparse (b-format) path at the full widths of
       llama3.2-3b-bsr (d_model 3072, d_ff 8192, 24 heads of 128, window
       4096 = 32 blocks of 128), through compile_expr -> BsrEngine:
@@ -71,14 +86,15 @@ Phases:
       (j); the CUDA-core kernels that the tensor-core route replaced at
       (g), (h) and (j) are timed in turns with it (new, old, old, new); and
       coo_to_levels is timed at (k), (l) and (l2). fused_imr's bound counts
-      a's value and output key and b's value only at the hits, in 32-byte
-      sectors.
+      a's value and output key and b's value only at the hits, and the
+      reduce kernels' bounds the values of the rows whose id is in range
+      only, in 32-byte sectors.
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
-(m) and (n) and read after each: segment_reduce must have launched in (m)
-and scatter_workspace in (n) (the two reduce kernels' launches in the
-kernels line are those of (b)-(e), (m) and (n)). They are zeroed again
+(m), (n), (o) and (p) and read after each: segment_reduce must have
+launched in (m) and (o) and scatter_workspace in (n) (the two reduce
+kernels' launches in the kernels line are those of (b)-(e) and (m)-(p)). They are zeroed again
 before each of (g)-(j) and read after it: its kernel must have launched there,
 (g)-(i) must report block size 128 and no fallback call, and spmm_bsr,
 sddmm_bsr and bsr_attention must have launched only their tensor-core
@@ -359,8 +375,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.core import coord_ops as co
+    from repro_torch.core import tiling
     from repro_torch.core.schedule import Format, Schedule
-    from repro_torch.core.torch_backend import (CompiledExpr, _bucket_cap,
+    from repro_torch.core.torch_backend import (CompiledExpr, TiledExpr,
+                                                _bucket_cap,
                                                 clear_compile_cache,
                                                 clear_program_cache,
                                                 compile_expr, compile_program)
@@ -629,7 +647,7 @@ def main() -> int:
         f"against (d)'s {workloads['SpMSpM 4096 ikj']['warm_ms']:.3f} "
         f"({lanes_m['warm_ms'] / workloads['SpMSpM 4096 ikj']['warm_ms']:.3f}"
         f"x); lane_dispatches {lanes_m['stats']['lane_dispatches']}")
-    del spmspm_d, want_d, got_d, got_m
+    del got_d, got_m                  # (p) runs (d)'s operands again
 
     # -- (n) a batch of 16 SpMSpM 1024, one seed a member ---------------------
     n, members = 1024, 16
@@ -686,6 +704,185 @@ def main() -> int:
         log(f"[n]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
     log(f"[n] engine stats {beng.stats}")
     del batch, wants, outs
+
+    # -- (o) out-of-core SpMM under a memory budget -------------------------
+    # the repo's own out-of-core case (benchmarks/tiled_oob.py): B 16384^2 at
+    # 0.2% (about 33 a row), C 16384 x 1024 dense, under a 4 GB budget
+    n, nj = 16384, 1024
+    o_expr, o_fmt = "X(i,j) = B(i,k) * C(k,j)", Format({"B": "cc", "C": "dd"})
+    o_sch = Schedule(loop_order=("i", "k", "j"))
+    o_dims, o_dens = {"i": n, "j": nj, "k": n}, {"B": 0.002, "C": 1.0}
+    o_budget = tiling.parse_budget("4GB")
+    o_arrays = {"B": sparse_int(rng, (n, n), 0.002),
+                "C": rng.integers(1, 9, (n, nj)).astype(float)}
+    want_o = sp.csr_matrix(o_arrays["B"]) @ o_arrays["C"]
+    log(f"[o] B nnz {np.count_nonzero(o_arrays['B'])}, C {n} x {nj} dense; "
+        f"result nnz {np.count_nonzero(want_o)}")
+    try:
+        compile_expr(o_expr, o_fmt, o_sch, o_dims, mem_budget="4GB",
+                     sparsity=o_dens, auto_tile=False)
+        raise AssertionError("(o) the untiled call was not refused")
+    except tiling.MemoryBudgetExceeded as exc:
+        o_untiled = exc.estimate
+    if o_untiled != 16282246691:
+        raise AssertionError(f"(o) untiled estimate {o_untiled}")
+    teng = compile_expr(o_expr, o_fmt, o_sch, o_dims, mem_budget="4GB",
+                        sparsity=o_dens)
+    if not isinstance(teng, TiledExpr) or teng.n_tiles != 4:
+        raise AssertionError(f"(o) engine {type(teng).__name__}")
+    log(f"[o] refused untiled at {o_untiled} bytes; tiled {teng.tile_of}, "
+        f"{teng.n_tiles} tiles of {teng.tile_bytes} estimated bytes")
+
+    def peak_call(label):
+        """One tiled call: host ms, peak allocated bytes over it, and the
+        per-tile engine's plan misses and hits it added."""
+        st0 = dict(teng.engine.stats)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = teng(o_arrays)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check_equal(f"(o) {label}", tree_to_dense(out), want_o)
+        after = torch.cuda.memory_allocated()
+        if after != base:
+            raise AssertionError(f"(o) {label}: {after - base} bytes "
+                                 f"outlive the call")
+        return ms, peak, {k: teng.engine.stats[k] - st0[k]
+                          for k in ("plan_misses", "plan_hits")}
+
+    kops.reset_launch_counts()
+    first_o, peak_first, st_first = peak_call("first call")
+    warm_o, peak_warm, st_warm = peak_call("warm call")
+    per_phase["o"] = kops.launch_counts()
+    if (st_first != {"plan_misses": 1, "plan_hits": 3}
+            or st_warm != {"plan_misses": 0, "plan_hits": 4}
+            or per_phase["o"]["segment_reduce"] < 1):
+        raise AssertionError(f"(o) plan stats {st_first} then {st_warm}, "
+                             f"launches {per_phase['o']}")
+    o_peak = max(peak_first, peak_warm)
+    log(f"[o] equals the oracle exactly; first call {first_o:.1f} ms, warm "
+        f"{warm_o:.1f} ms; plans {st_first} then {st_warm}; launches "
+        f"{per_phase['o']}")
+    log(f"[o] peak allocated {peak_first} bytes (first call), {peak_warm} "
+        f"(warm); tile_bytes {teng.tile_bytes}, budget {o_budget}, untiled "
+        f"estimate {o_untiled}")
+    if o_peak > o_budget:
+        # the port holds more than the reference's estimate models (int64
+        # keys, power-of-two capacities): a fault of the port, held to the
+        # untiled estimate instead
+        log(f"[o] FAULT: the peak exceeds the budget by {o_peak - o_budget} "
+            f"bytes ({o_peak / o_budget:.3f}x); held to the untiled "
+            f"estimate instead ({o_peak / o_untiled:.3f} of it)")
+        if o_peak >= o_untiled:
+            raise AssertionError(f"(o) peak {o_peak} reaches the untiled "
+                                 f"estimate {o_untiled}")
+
+    # (f) holds segment_reduce at the largest shape the tiles gave it
+    record_kernel_inputs("o", lambda: teng(o_arrays))
+    seen["o"] = {k: [max(v, key=lambda kw: kw["vals"].numel())]
+                 for k, v in seen["o"].items() if k == "segment_reduce"}
+
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(teng, o_arrays)
+    stages = {}
+    for (path, _, func), (_, _, _, cum, _) in pstats.Stats(
+            prof).stats.items():
+        if func in ("_measure_hints", "slice_operands", "accumulate_coo",
+                    "_finalize", "execute_coo") and "repro_torch" in path:
+            stages[func] = stages.get(func, 0.0) + cum * 1e3
+    prof_o = device_profile(lambda: teng(o_arrays))
+    idle = prof_o["idle_share"]
+    workloads["SpMM 16384 x 1024 tiled"] = {
+        "first_ms": first_o, "warm_ms": warm_o,
+        "result_nnz": int(np.count_nonzero(want_o)), "peak_bytes": o_peak,
+        "peak_first_bytes": peak_first, "peak_warm_bytes": peak_warm,
+        "tile_bytes": teng.tile_bytes, "budget": o_budget,
+        "untiled_estimate": o_untiled, "host_stages_ms": stages,
+        "profile": prof_o, "stats": dict(teng.stats),
+        "engine_stats": dict(teng.engine.stats)}
+    log("[o] host (cProfile cumulative ms) " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(stages.items(),
+                                          key=lambda kv: -kv[1])))
+    log(f"[o] profiled call {prof_o['wall_ms']:.1f} ms with "
+        f"{prof_o['device_busy_ms']:.3f} ms of kernels on the card, idle "
+        f"share " + ("not measured" if idle is None else f"{idle:.4f}"))
+    for row in prof_o["top_kernels"][:4]:
+        log(f"[o]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+
+    # -- (p) schedule="auto" ------------------------------------------------
+    # (d)'s product searched, then (o)'s under its budget; a cache file of
+    # its own in a temporary directory
+    import os
+    import tempfile
+
+    from repro_torch.core.autoschedule import resolve_schedule
+
+    kops.reset_launch_counts()
+    saved_cache = os.environ.get("SAM_SCHEDULE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SAM_SCHEDULE_CACHE"] = os.path.join(tmp, "s.json")
+        try:
+            d_fmt = Format({"B": "cc", "C": "cc"})
+            d_dims = {"i": 4096, "j": 4096, "k": 4096}
+            # compile_expr searches for one device (lanes run on one card)
+            t0 = time.perf_counter()
+            res = resolve_schedule(o_expr, d_fmt, d_dims, sparsity=0.005,
+                                   device_count=1)
+            search_s = time.perf_counter() - t0
+            peng = compile_expr(o_expr, d_fmt, "auto", d_dims,
+                                sparsity=0.005)
+            again = resolve_schedule(o_expr, d_fmt, d_dims, sparsity=0.005,
+                                     device_count=1)
+            if (res.cache_hit or res.report is None or not again.cache_hit
+                    or again.report is not None
+                    or peng.schedule != res.schedule
+                    or again.schedule != res.schedule):
+                raise AssertionError("(p) the pick was not searched once "
+                                     "and then served from the cache")
+            t0 = time.perf_counter()
+            check_equal("(p) SpMSpM 4096 auto", tree_to_dense(peng(spmspm_d)),
+                        want_d)
+            p_ms = (time.perf_counter() - t0) * 1e3
+            p_warm = warm_ms(lambda: peng(spmspm_d), reps=3)
+            log(f"[p] SpMSpM 4096 auto: pick {res.report.best.spec.key()} "
+                f"(cycles {res.report.best.cycles}); search {search_s:.3f} s, "
+                f"enumerated {res.report.enumerated}, simulated "
+                f"{res.report.simulated}; the second resolve a cache hit; "
+                f"equals (d)'s oracle, first call {p_ms:.1f} ms, warm "
+                f"median {p_warm:.1f} ms over 3 calls")
+            t0 = time.perf_counter()
+            po = compile_expr(o_expr, o_fmt, "auto", o_dims,
+                              mem_budget="4GB", sparsity=o_dens)
+            po_s = time.perf_counter() - t0
+            if (not isinstance(po, TiledExpr) or not po.schedule.tile
+                    or po.tile_bytes > o_budget):
+                raise AssertionError(f"(p) budgeted pick {po.schedule}")
+            t0 = time.perf_counter()
+            check_equal("(p) (o) auto", tree_to_dense(po(o_arrays)), want_o)
+            log(f"[p] (o) auto under 4GB: pick {po.schedule.loop_order} tile "
+                f"{po.schedule.tile} ({po.n_tiles} tiles of "
+                f"{po.tile_bytes} estimated bytes, search and build "
+                f"{po_s:.3f} s; the engine of (o): {po is teng}); equals "
+                f"(o)'s oracle, {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        finally:
+            if saved_cache is None:
+                os.environ.pop("SAM_SCHEDULE_CACHE", None)
+            else:
+                os.environ["SAM_SCHEDULE_CACHE"] = saved_cache
+    per_phase["p"] = kops.launch_counts()
+    workloads["SpMSpM 4096 auto"] = {
+        "pick": res.report.best.spec.key(), "search_s": search_s,
+        "enumerated": res.report.enumerated,
+        "simulated": res.report.simulated, "first_ms": p_ms,
+        "warm_ms": p_warm}
+    log(f"[p] launches {per_phase['p']}")
+    del o_arrays, want_o, teng, po, peng, spmspm_d, want_d
 
     # -- (g)-(j) the block-sparse path at llama3.2-3b-bsr's widths ------------
     # d_model 3072, d_ff 8192, 24 heads of 128, window 4096 tokens
@@ -998,11 +1195,21 @@ def main() -> int:
             f"{row['fp32_bound_ms']:.4f}) max_abs_err {err}")
         return row
 
+    def sector_bytes(rows, row_bytes):
+        """Bytes of the 32-byte sectors that hold the given rows of an
+        array of ``row_bytes``-byte rows (a row of up to 32 bytes spans at
+        most two sectors)."""
+        first = rows * row_bytes // 32
+        last = (rows * row_bytes + row_bytes - 1) // 32
+        return torch.unique(torch.cat([first, last])).numel() * 32
+
+    # the reduce kernels skip a row whose id lies outside [0, slots) before
+    # they read its values, so their bound counts every id, the values of
+    # the live rows in the sectors that hold them, and the output once
     for name in ("scatter_workspace", "segment_reduce"):
         rows = []
-        launches = main_counts[name] + per_phase["m"][name] + per_phase[
-            "n"][name]
-        for tag in ("c", "d", "d2", "e"):
+        launches = sum(per_phase[t][name] for t in "mnop") + main_counts[name]
+        for tag in ("c", "d", "d2", "e", "o"):
             calls = seen.get(tag, {}).get(name, [])
             if not calls:
                 continue
@@ -1013,6 +1220,7 @@ def main() -> int:
                 c_out = 2 if mp else cols.shape[1]
                 ids64 = ids.long().clamp(0, slots)
                 lib_cols = cols[:, :c_out].contiguous()
+                live = ((ids >= 0) & (ids < slots)).nonzero().squeeze(1)
                 rows.append(report(
                     name, launches,
                     lambda: scatter_workspace(ids, cols, num_slots=slots,
@@ -1022,15 +1230,17 @@ def main() -> int:
                                                     mul_pair=mp),
                     lambda: torch.zeros((slots + 1, c_out), device="cuda"
                                         ).index_add_(0, ids64, lib_cols),
-                    ids.numel() * ids.element_size() + cols.numel() * 4
+                    ids.numel() * ids.element_size()
+                    + sector_bytes(live, cols.shape[1] * 4)
                     + slots * c_out * 4,
-                    ids.numel() * c_out,
-                    f"({tag}) N={ids.numel()} C={cols.shape[1]} "
-                    f"slots={slots} mul_pair={mp}"))
+                    live.numel() * c_out,
+                    f"({tag}) N={ids.numel()} live={live.numel()} "
+                    f"C={cols.shape[1]} slots={slots} mul_pair={mp}"))
             else:
                 vals, sids = kw["vals"], kw["seg_ids"]
                 nseg = kw["num_segments"]
                 sids64 = sids.long().clamp(0, nseg)
+                live = ((sids >= 0) & (sids < nseg)).nonzero().squeeze(1)
                 rows.append(report(
                     name, launches,
                     lambda: segment_reduce(vals, sids, num_segments=nseg),
@@ -1039,11 +1249,27 @@ def main() -> int:
                     lambda: torch.zeros((nseg + 1, vals.shape[1]),
                                         device="cuda"
                                         ).index_add_(0, sids64, vals),
-                    sids.numel() * sids.element_size() + vals.numel() * 4
+                    sids.numel() * sids.element_size()
+                    + sector_bytes(live, vals.shape[1] * 4)
                     + nseg * vals.shape[1] * 4,
-                    vals.numel(),
-                    f"({tag}) N={vals.shape[0]} D={vals.shape[1]} "
-                    f"S={nseg}"))
+                    live.numel() * vals.shape[1],
+                    f"({tag}) N={vals.shape[0]} live={live.numel()} "
+                    f"D={vals.shape[1]} S={nseg}"))
+                if vals.shape[1] == 2:
+                    # a [value, 1] reduce over the key space: the workspace
+                    # kernel computes the same function on the same inputs,
+                    # the route the entries take up to 2^20 keys
+                    ws = scatter_workspace(sids, vals, num_slots=nseg)
+                    if not torch.equal(ws[:nseg], segment_reduce(
+                            vals, sids, num_segments=nseg)):
+                        raise AssertionError(f"({tag}) scatter_workspace "
+                                             "differs from segment_reduce")
+                    rows[-1]["workspace_route_ms"] = event_ms(
+                        lambda: scatter_workspace(sids, vals,
+                                                  num_slots=nseg))
+                    log(f"[f] segment_reduce at ({tag}): scatter_workspace "
+                        f"on the same inputs, equal, ms "
+                        f"{rows[-1]['workspace_route_ms']:.4f}")
         kernels.append(max(rows, key=lambda r: r["bytes"]))
 
     # fused_imr: its own phase through the intersect_mul_reduce entry
@@ -1090,11 +1316,8 @@ def main() -> int:
     hit_a = hit.nonzero().squeeze(1)
     n_hit = hit_a.numel()
 
-    def sectors(pos, width):
-        return torch.unique(pos // (32 // width)).numel() * 32
-
-    n_hit_bytes = (sectors(hit_a, 4) + sectors(hit_a, 8)
-                   + sectors(idx[hit_a], 4))
+    n_hit_bytes = (sector_bytes(hit_a, 4) + sector_bytes(hit_a, 8)
+                   + sector_bytes(idx[hit_a], 4))
     log(f"[f] fused_imr: {n_hit} of {na} elements of a hit; the hits' "
         f"gathers touch {n_hit_bytes} bytes")
     lib_ids = torch.where(hit, out_key, slots)

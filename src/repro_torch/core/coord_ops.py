@@ -92,11 +92,12 @@ def compact(mask: torch.Tensor, arrays: Tuple[torch.Tensor, ...], cap: int,
         outs = tuple(torch.full((cap,) + tuple(a.shape[1:]), fill,
                                 dtype=a.dtype, device=dev) for a in arrays)
         return outs, torch.zeros((), dtype=I32, device=dev)
-    csum = torch.cumsum(mask.to(I64), 0)
+    csum = torch.cumsum(mask, 0)                  # bool sums to int64
     count = csum[-1]
     src = torch.searchsorted(
         csum, torch.arange(1, cap + 1, dtype=I64, device=dev))
-    src = _clip(src, 0, mask.shape[0] - 1)
+    del csum
+    src = src.clamp_(min=0).clamp_(max=mask.shape[0] - 1)
     live = torch.arange(cap, device=dev) < count
     outs = []
     for a in arrays:
@@ -113,29 +114,41 @@ def scan_level(seg: torch.Tensor, crd: torch.Tensor,
 
     Returns (crd, ref, parent_idx, valid) tensors of length ``cap``.
     ``parent_ref < 0`` (holes from unions) scan as empty fibers.
+
+    The per-slot work stays in int32 below ``cap = 2**31`` (positions,
+    segment ids, offsets): the output stream is the largest allocation of
+    a plan, so its temporaries are kept to a few int32 arrays.
     """
     dev = crd.device
     if crd.shape[0] == 0:  # tensor level with no stored coordinates
         z = torch.zeros((cap,), dtype=I32, device=dev)
         return z, z.clone(), z.clone(), torch.zeros((cap,), dtype=torch.bool,
                                                    device=dev)
-    seg = seg.to(I64)
+    seg64 = seg.to(I64)
     pr = _clip(parent_ref.to(I64), 0, seg.shape[0] - 2)
     ok = parent_valid & (parent_ref >= 0)
-    lengths = torch.where(ok, seg[pr + 1] - seg[pr], 0)
+    lengths = torch.where(ok, seg64[pr + 1] - seg64[pr], 0)
     starts = exclusive_cumsum(lengths)
     if lengths.shape[0]:
         total = starts[-1] + lengths[-1]
     else:
         total = torch.zeros((), dtype=I64, device=dev)
+    idx_t = I32 if cap < 2 ** 31 else I64
+    # a start at or past cap compares with every position as cap does,
+    # so the clamp changes no segment id and lets starts take idx_t
+    starts = torch.clamp(starts, max=cap).to(idx_t)
     # segment id of each output slot: number of starts <= position
-    pos = torch.arange(cap, dtype=I64, device=dev)
-    sid = torch.searchsorted(starts, pos, right=True) - 1
-    sid = _clip(sid, 0, lengths.shape[0] - 1)
-    intra = pos - starts[sid]
-    valid = pos < total
-    ref = torch.where(valid, seg[pr[sid]] + intra, 0)
-    out_crd = torch.where(valid, crd[_clip(ref, 0, crd.shape[0] - 1)], 0)
+    pos = torch.arange(cap, dtype=idx_t, device=dev)
+    sid = torch.searchsorted(starts, pos, right=True,
+                             out_int32=idx_t == I32)
+    sid = sid.sub_(1).clamp_(min=0).clamp_(max=lengths.shape[0] - 1)
+    valid = pos < torch.clamp(total, max=cap)
+    intra = starts[sid].neg_().add_(pos)          # pos - starts[sid]
+    del pos
+    ref = seg.to(idx_t)[pr.to(idx_t)[sid]].add_(intra)
+    del intra
+    ref = ref.masked_fill_(~valid, 0)
+    out_crd = crd[ref.clamp(0, crd.shape[0] - 1)].masked_fill_(~valid, 0)
     return out_crd.to(I32), ref.to(I32), sid.to(I32), valid
 
 
@@ -269,16 +282,18 @@ def keyed_union_reduce(keys, vals, valid, cap: int, segment_sum_impl=None,
                 torch.zeros((cap,), dtype=vals.dtype, device=dev),
                 torch.zeros((cap,), dtype=torch.bool, device=dev),
                 torch.zeros((), dtype=I32, device=dev))
-    keys = torch.where(valid, keys, PAD_KEY)
-    order = torch.argsort(keys, stable=True)
-    sk = keys[order]
-    sv = torch.where(valid[order], vals[order], 0.0)
+    # one stable sort gives the sorted keys and the permutation (argsort
+    # and a gather would hold a third key-sized array)
+    sk, order = torch.sort(torch.where(valid, keys, PAD_KEY), stable=True)
+    sv = vals[order].masked_fill_(~valid[order], 0.0)
+    del order
     first = _first_flags(sk)
     live = sk != PAD_KEY
     # padding rows (sorted last) take the dropped id n: their sum is
     # never read
-    seg_id = torch.where(live, torch.cumsum(first.to(I64), 0) - 1, n)
+    seg_id = torch.cumsum(first, 0).sub_(1).masked_fill_(~live, n)
     sums = segsum(sv, seg_id, n)
+    del sv, seg_id
     keep = first & live
     (uk,), count = compact(keep, (sk,), cap, fill=PAD_KEY)
     if cap <= n:

@@ -456,7 +456,7 @@ def compile_expr(expr: str, fmt: Format, schedule, dims: Dict[str, int]
             ``"x(i) = B(i,j) * c(j)"``.
         fmt: per-tensor level formats (``schedule.Format``).
         schedule: a ``Schedule`` (its ``split`` is applied internally), or
-            ``"auto"``, which the port refuses (see ``lower``).
+            the string ``"auto"`` to search for one (see ``lower``).
         dims: extent of every index variable.
 
     Returns:
@@ -603,11 +603,6 @@ class Lowered:
 
 _LOWERED_CACHE: Dict[str, Lowered] = {}
 
-# ``schedule="auto"`` needs the autoscheduler and its simulator cost model,
-# which the PyTorch port has not copied yet
-_AUTO_SLICE = ("schedule='auto' is not ported to PyTorch yet (ROADMAP.md, "
-               "still to port #2: `auto` with simulator and autoschedule)")
-
 
 def lower(expr, fmt: Format, schedule, dims: Dict[str, int]) -> Lowered:
     """Lower an expression with its FULL schedule, memoized.
@@ -615,9 +610,12 @@ def lower(expr, fmt: Format, schedule, dims: Dict[str, int]) -> Lowered:
     Args:
         expr: tensor index notation text or a parsed ``Assignment``.
         fmt: per-tensor level formats.
-        schedule: a ``Schedule``. The string ``"auto"`` (the reference's
-            autoscheduler search) raises ``NotImplementedError`` until the
-            autoscheduler is ported.
+        schedule: a ``Schedule``, or the string ``"auto"`` to let the
+            autoscheduler pick one — the schedule space (loop orders,
+            split factors, lane counts) is searched with the simulator as
+            cost model and the winner is remembered in the persistent
+            on-disk schedule cache (``autoschedule.resolve_schedule``,
+            DESIGN.md §5), so a shape is only ever searched once.
         dims: extent of every index variable.
 
     Returns:
@@ -646,14 +644,18 @@ def lower(expr, fmt: Format, schedule, dims: Dict[str, int]) -> Lowered:
         if schedule != "auto":
             raise ValueError(
                 f"schedule must be a Schedule or 'auto', got {schedule!r}")
-        raise NotImplementedError(_AUTO_SLICE)
+        from .autoschedule import resolve_schedule
+        # the port runs a lowering's lanes on one device, so the search
+        # ranks for one, as compile_expr's does without shard_lanes
+        schedule = resolve_schedule(expr, fmt, dims,
+                                    device_count=1).schedule
     if schedule.tile:
         raise ValueError(
             "Custard lowers one tile at a time: a tiled schedule "
             f"(tile={schedule.tile}) executes through the out-of-core "
-            "driver, which the PyTorch port does not have yet (ROADMAP.md, "
-            "still to port #3: tiles); strip `tile` to lower a single "
-            "tile's graph")
+            "engine — torch_backend.compile_expr routes it to TiledExpr, "
+            "simulator.simulate_expr models the tile stream (docs/"
+            "TILING.md); strip `tile` to lower a single tile's graph")
     assign = parse(expr) if isinstance(expr, str) else expr
     key = expr_cache_key(assign, fmt, schedule, dims)
     hit = _LOWERED_CACHE.get(key)
@@ -728,11 +730,10 @@ def lower_program(program, fmt: Format, schedules, dims: Dict[str, int], *,
     """Lower a multi-assignment program: per-stage ``Lowered`` objects
     plus the producer→consumer fusion plan (``program.lower_program``).
 
-    ``schedules`` is a dict keyed by stage lhs tensor or a sequence
-    aligned with the stages (``"auto"`` raises until the autoscheduler is
-    ported); fused stages share scanners — the consumer's scanners of a
-    fused intermediate are spliced wires carrying the producer's writer
-    streams (DESIGN.md §6).
+    ``schedules`` is ``"auto"``, a dict keyed by stage lhs tensor, or a
+    sequence aligned with the stages; fused stages share scanners — the
+    consumer's scanners of a fused intermediate are spliced wires carrying
+    the producer's writer streams (DESIGN.md §6).
 
     >>> from repro_torch.core.schedule import Format
     >>> lp = lower_program(
@@ -752,7 +753,11 @@ def lower_program(program, fmt: Format, schedules, dims: Dict[str, int], *,
 def clear_lowering_cache() -> None:
     """Drop every in-process lowering memo.
 
-    The port has no autoscheduler yet, so there is no resolution memo
-    to drop beside it.
+    Also clears the autoscheduler's in-process resolution memo: a caller
+    clearing lowerings expects ``schedule="auto"`` to re-resolve, and a
+    stale memo entry would otherwise keep serving the old schedule even
+    after the on-disk schedule cache changed underneath it.
     """
     _LOWERED_CACHE.clear()
+    from .autoschedule import clear_resolution_memo
+    clear_resolution_memo()

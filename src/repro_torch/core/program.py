@@ -215,11 +215,10 @@ def resolve_stage_schedules(program: Program, fmt: Format, schedules,
                             sparsity=None) -> List[Schedule]:
     """Normalize the ``schedules`` argument to one ``Schedule`` per stage.
 
-    Accepts a dict keyed by stage lhs tensor (missing stages default to
-    the program-order loop order) or a sequence aligned with the stages.
-    ``"auto"``, for the whole program or a stage (the reference's
-    autoscheduler search), raises ``NotImplementedError`` until the
-    autoscheduler is ported.
+    Accepts ``"auto"`` (every stage resolved through the autoscheduler and
+    its persistent cache), a dict keyed by stage lhs tensor (missing
+    stages default to the program-order loop order; values may be
+    ``"auto"``), or a sequence aligned with the stages.
     """
     n = len(program.assigns)
     if isinstance(schedules, Schedule):
@@ -245,8 +244,13 @@ def resolve_stage_schedules(program: Program, fmt: Format, schedules,
         if isinstance(sch, str):
             if sch != "auto":
                 raise ValueError(f"bad schedule {sch!r}")
-            from .custard import _AUTO_SLICE
-            raise NotImplementedError(_AUTO_SLICE)
+            from .autoschedule import resolve_schedule
+            # a program's stages run their lanes on one device, so the
+            # search ranks for one, as compile_expr's does without
+            # shard_lanes
+            sch = resolve_schedule(assign, fmt, stage_dims(assign, dims),
+                                   sparsity=sparsity,
+                                   device_count=1).schedule
         out.append(sch)
     return out
 
@@ -472,12 +476,10 @@ def lower_program(program, fmt: Format, schedules, dims: Dict[str, int], *,
         program: program text, a ``Program``, or a sequence of assignments.
         fmt: per-tensor formats (intermediates included — the producer
             writes and the consumer reads the same format).
-        schedules: a dict keyed by stage lhs tensor, or a sequence
-            aligned with the stages (``"auto"`` raises: the autoscheduler
-            is not ported yet).
+        schedules: ``"auto"``, a dict keyed by stage lhs tensor, or a
+            sequence aligned with the stages (entries may be ``"auto"``).
         dims: extent of every index variable used by any stage.
-        sparsity: density hint for the autoscheduler (unused until it is
-            ported).
+        sparsity: density hint forwarded to the autoscheduler.
         fuse: set False to force materialization everywhere (the
             comparison baseline used by benchmarks and golden tests).
 

@@ -851,8 +851,8 @@ class ExprSimResult:
     fills once, and the tile-merge stage runs concurrently downstream —
     ``cycles = max(sum of per-tile steady states, merge work) + fill`` —
     so modeled numbers stay comparable with the measured tiled engine
-    (the reference's ``jax_backend.TiledExpr``). ``tiles`` is the
-    tile-grid volume (1 = untiled).
+    (``torch_backend.TiledExpr``). ``tiles`` is the tile-grid volume
+    (1 = untiled).
 
     ``workers > 1`` models the distributed tile fan-out
     (``dist_exec.DistTiledExpr``): tiles round-robin over the workers
@@ -953,10 +953,12 @@ def simulate_expr(expr, fmt, schedule, arrays, dims, *,
     chunk ``l`` of the parallelized variable's coordinate space — and a
     final merge stage sums the signed lane outputs at equal coordinates
     (the lane-join unioner/reducer of §4.4). Tiled schedules
-    (``Schedule.tile``, the out-of-core knob, and with it ``workers``)
-    raise ``NotImplementedError`` in the port until tiles are ported;
-    untiled expressions are one unit of work, so ``workers`` does not
-    change them.
+    (``Schedule.tile``, the out-of-core knob) simulate every coordinate
+    tile through the tile-free inner schedule and combine them under the
+    streaming cycle law described on ``ExprSimResult``; ``workers``
+    spreads the tile stream over that many concurrent devices under the
+    max-over-devices law (untiled expressions are one unit of work, so
+    ``workers`` does not change them).
 
     >>> import numpy as np
     >>> from repro_torch.core.schedule import Format, Schedule
@@ -966,6 +968,19 @@ def simulate_expr(expr, fmt, schedule, arrays, dims, *,
     ...                     {"B": B, "c": np.ones(3)}, {"i": 2, "j": 3})
     >>> res.dense.tolist(), res.tiles
     ([3.0, 3.0], 1)
+    >>> tiled = simulate_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc"}),
+    ...                       Schedule(loop_order=("i", "j"),
+    ...                                tile={"j": 3}),
+    ...                       {"B": B, "c": np.ones(3)}, {"i": 2, "j": 3})
+    >>> tiled.dense.tolist(), tiled.tiles
+    ([3.0, 3.0], 3)
+    >>> dist = simulate_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc"}),
+    ...                      Schedule(loop_order=("i", "j"),
+    ...                               tile={"j": 3}),
+    ...                      {"B": B, "c": np.ones(3)}, {"i": 2, "j": 3},
+    ...                      workers=3)
+    >>> dist.dense.tolist(), dist.workers, dist.cycles <= tiled.cycles
+    ([3.0, 3.0], 3, True)
     >>> slow = simulate_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc"}),
     ...                      Schedule(loop_order=("i", "j")),
     ...                      {"B": B, "c": np.ones(3)}, {"i": 2, "j": 3},
@@ -1024,14 +1039,80 @@ def simulate_expr(expr, fmt, schedule, arrays, dims, *,
                          merge_work=merge_work)
 
 
-# tiled schedules need ``core/tiling``, which the port has not copied yet
-_TILES_SLICE = "ROADMAP.md, still to port #3: tiles"
-
-
 def _simulate_tiled(expr, fmt, schedule, arrays, dims,
                     workers: int = 1,
                     hw: Optional[HardwareConfig] = None) -> ExprSimResult:
-    """Simulate a ``Schedule.tile`` schedule (the reference's per-tile
-    streaming law): not ported, so it raises."""
-    raise NotImplementedError(
-        f"tiled schedules are not ported yet ({_TILES_SLICE})")
+    """Simulate a ``Schedule.tile`` schedule: one inner simulation per
+    coordinate tile, combined under the streaming law.
+
+    Tiles stream back-to-back through ONE pipeline (the tiled engine
+    reuses a single compiled per-tile callable), so their steady-state
+    terms ADD and the pipeline fills once; the tile-merge stage — each
+    tile's partial folds into the running result — runs concurrently
+    downstream:  ``cycles = max(Σ steady_t, Σ merge_t) + fill``.
+
+    With ``workers > 1`` (the reference's distributed fan-out,
+    ``dist_exec.DistTiledExpr``) tile ``t`` runs on worker
+    ``t mod workers`` — a round-robin assignment — and the
+    workers stream concurrently: steady states add PER WORKER and the
+    machine-wide steady term is the MAX over workers, not the sum. The
+    grid-order merge fold and the one-time pipeline fill are unchanged:
+    ``cycles = max(max_w Σ steady_t[t ≡ w], Σ merge_t) + fill``.
+    """
+    from . import tiling
+    from .einsum import parse
+
+    assign = parse(expr) if isinstance(expr, str) else expr
+    hw = hw or HardwareConfig()
+    tile = tiling.normalize_tile(schedule)
+    inner = dataclasses.replace(schedule, tile={})
+    if not tile:
+        return simulate_expr(assign, fmt, inner, arrays, dims, hw=hw)
+    tiling.check_tile(assign, tile, schedule=schedule)
+    ext = tiling.tile_extents(dims, tile)
+    lhs_vars = assign.lhs.vars
+    out: Any = (np.zeros(tuple(dims[v] for v in lhs_vars)) if lhs_vars
+                else 0.0)
+    per_worker = [0] * max(int(workers), 1)
+    fill, merge_work = 0, 0
+    lanes: List[LaneSim] = []
+    for t_i, tids in enumerate(tiling.tile_grid(tile)):
+        sliced = tiling.slice_operands(assign, arrays, dims, tile, tids)
+        res = simulate_expr(assign, fmt, inner, sliced, ext)
+        lanes.extend(res.lanes)
+        per_worker[t_i % len(per_worker)] += max(
+            (max(ls.result.work.values(), default=1)
+             for ls in res.lanes), default=1)
+        fill = max(fill, max((ls.result.graph.depth()
+                              for ls in res.lanes), default=0) + 1)
+        # the tile's live partial folds into the running result (the
+        # engine's accumulate_coo merge), on top of any lane merge it
+        # already paid internally
+        merge_work += res.merge_work + int(np.count_nonzero(res.dense)) + 1
+        if lhs_vars:
+            d = np.asarray(res.dense)
+            idx = []
+            for ax, v in enumerate(lhs_vars):
+                if v in tile:
+                    lo = tids[v] * ext[v]
+                    hi = min(lo + ext[v], dims[v])
+                    if hi <= lo:     # tile fully past the extent: an
+                        idx = None   # all-padding cell, nothing to place
+                        break
+                    idx.append(slice(lo, hi))
+                    d = d[(slice(None),) * ax + (slice(0, hi - lo),)]
+                else:
+                    idx.append(slice(None))
+            if idx is not None:
+                out[tuple(idx)] += d
+        else:
+            out = out + res.dense
+    steady = _hw_steady(
+        hw, max(per_worker),
+        sum(sum(ls.result.work.values()) for ls in lanes),
+        sum(_sim_mem_tokens(ls.result) for ls in lanes))
+    cycles = max(steady, merge_work) + fill + _hw_stall(hw, steady)
+    return ExprSimResult(dense=out if lhs_vars else np.asarray(out),
+                         cycles=cycles, lanes=lanes, merge_work=merge_work,
+                         tiles=tiling.n_tiles(tile),
+                         workers=len(per_worker))

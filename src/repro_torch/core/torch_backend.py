@@ -63,9 +63,17 @@ through the ``coo_to_levels`` dispatch entry (the hand-written
 them there; every other stage is a ``CompiledExpr`` with a dense host
 handoff between units.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md slice: tiles and ``mem_budget``, ``schedule="auto"``, and
-lanes spread over more than one GPU (``shard_lanes``).
+Out-of-core execution (``Schedule.tile``, or a ``mem_budget`` that
+``tiling.resolve_plan`` turns into one) runs as a ``TiledExpr``: the
+tiles of the coordinate space stream one after another through ONE
+shared per-tile ``CompiledExpr`` (one plan for every tile), and their
+partial COOs merge on the host's running accumulator through
+``coord_ops.accumulate_coo``, one keyed union reduce a tile on the
+device. ``schedule="auto"`` resolves through the port's copy of
+``autoschedule`` (its persistent schedule cache is the port's own file).
+
+Not ported yet: lanes spread over more than one GPU (``shard_lanes``),
+which raises ``NotImplementedError`` naming its ROADMAP.md slice.
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ import torch
 from ..kernels import ops as kops
 from . import coord_ops as co
 from . import graph as g
+from . import tiling
 from .bsr_bridge import BsrEngine, bsr_pattern
 from .custard import expr_cache_key, lower
 from .einsum import Assignment, Term, parse
@@ -87,11 +96,8 @@ from .schedule import Format, Schedule, build_inputs
 
 PAD = co.PAD_KEY
 
-# what each unported path waits for: its entry in ROADMAP.md's list of
+# what the unported path waits for: its entry in ROADMAP.md's list of
 # what is still to port
-_AUTO_SLICE = ("ROADMAP.md, still to port #2: `auto` with simulator and "
-               "autoschedule")
-_TILES_SLICE = "ROADMAP.md, still to port #3: tiles"
 _DIST_SLICE = "ROADMAP.md, still to port #5: distributed tiles"
 
 
@@ -196,12 +202,21 @@ class RefStream:
 @dataclasses.dataclass
 class ValStream:
     stream: Optional[CanonStream]
-    vals: torch.Tensor
+    _vals: Optional[torch.Tensor]
     valid: torch.Tensor
     # provenance of a multiply: ``(a_vals, b_vals)`` with
     # ``vals == a_vals * b_vals``; lets the final collapse hand the
     # un-multiplied streams to the fused multiply-reduce kernel
     pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    @property
+    def vals(self) -> torch.Tensor:
+        """The values. A multiply's product is formed on first use: when
+        it only feeds the final collapse, which takes ``pair``, it is never
+        materialized (a stream-sized array less on the card)."""
+        if self._vals is None:
+            self._vals = self.pair[0] * self.pair[1]
+        return self._vals
 
 
 @dataclasses.dataclass
@@ -408,12 +423,14 @@ class TorchBackend:
         a: ValStream = ins["a"]
         b: ValStream = ins["b"]
         op = node.params["op"]
-        f = {"mul": torch.mul, "add": torch.add, "sub": torch.sub}[op]
-        if a.vals.shape != b.vals.shape:
+        if a.valid.shape != b.valid.shape:
             raise ValueError("ALU operands misaligned in PyTorch backend")
-        pair = (a.vals, b.vals) if op == "mul" else None
+        if op == "mul":
+            return {"val": ValStream(a.stream, None, a.valid | b.valid,
+                                     pair=(a.vals, b.vals))}
+        f = {"add": torch.add, "sub": torch.sub}[op]
         return {"val": ValStream(a.stream, f(a.vals, b.vals),
-                                 a.valid | b.valid, pair=pair)}
+                                 a.valid | b.valid)}
 
     def _reduce(self, node, ins):
         v: ValStream = ins["val"]
@@ -445,23 +462,37 @@ class TorchBackend:
         cs = v.stream
         chain = cs.ancestors()           # innermost first
         strides: List[Tuple[str, int]] = []
-        key = torch.zeros(cs.size, dtype=torch.int64, device=self.device)
+        key: Optional[torch.Tensor] = None
         mult = 1
-        idx = torch.arange(cs.size, device=self.device)
+        # each ancestor's row of every element; None is the innermost
+        # stream's own positions (no gather). The sums are built in place:
+        # the stream is a plan's largest allocation
+        idx: Optional[torch.Tensor] = None
         valid = v.valid & cs.valid
         for s in chain:
             if s.var in self.result_vars:
-                key = key + s.crd[idx].to(torch.int64) * mult
+                c = s.crd if idx is None else s.crd[idx]
+                term = c.to(torch.int64, copy=idx is None).mul_(mult)
+                key = term if key is None else key.add_(term)
+                # unbound, the last gather and term would stay alive
+                # through the reduce, the plan's peak
+                del c, term
                 strides.append((s.var, self.dims[s.var]))
                 mult *= self.dims[s.var]
-            valid = valid & s.valid[idx]
+            valid &= s.valid if idx is None else s.valid[idx]
             if s.parent is not None:
-                idx = s.parent_idx[idx]
+                idx = s.parent_idx if idx is None else s.parent_idx[idx]
+        del idx                          # before the reduce, the peak
+        if key is None:
+            key = torch.zeros(cs.size, dtype=torch.int64, device=self.device)
         strides.reverse()                # outer -> inner
         if self.out_cap is None:
-            need = int(torch.sum(valid))
-            cap = self._cap(need)
-            self.caps_record["out"] = need
+            # the eager pass sizes its reduce for every live row, but
+            # records the distinct keys it found: a plan's result holds
+            # those, so a product stream's result does not cross to the
+            # host at the stream's capacity; a later call with more keys
+            # reports ``count > cap`` and regrows
+            cap = self._cap(int(torch.sum(valid)))
         else:
             cap = self.out_cap
         if v.pair is not None and self.mul_reduce_impl is not None:
@@ -476,7 +507,9 @@ class TorchBackend:
         else:
             uk, uv, uvalid, count = co.keyed_union_reduce(
                 key, v.vals, valid, cap, self.segsum, key_bound=mult)
-        if self.out_cap is not None:
+        if self.out_cap is None:
+            self.caps_record["out"] = int(count)
+        else:
             self.required["out"] = count
         return COOResult(uk, uv, uvalid, strides)
 
@@ -510,10 +543,25 @@ class TorchBackend:
             g.LOCATE: self._locate, g.LEVEL_WRITE: self._level_write,
             g.CONVERT: self._convert,
         }
-        for node in self.g.topo_order():
+        order = self.g.topo_order()
+        # an output leaves ``env`` once its last consumer has run (the
+        # writers' stay: ``run_streams`` reads them), so stream-sized
+        # references (a scanner's refs, a repeat's gathers) free early
+        pending: Dict[Tuple[int, str], int] = {}
+        for node in order:
+            for e in self.g.in_edges(node):
+                key = (e.src, e.src_port)
+                pending[key] = pending.get(key, 0) + 1
+        for node in order:
             outs = handlers[node.kind](node, self._ins(node))
             for port, val in outs.items():
                 self.env[(node.id, port)] = val
+            for e in self.g.in_edges(node):
+                key = (e.src, e.src_port)
+                pending[key] -= 1
+                if (pending[key] == 0
+                        and self.g.nodes[e.src].kind != g.LEVEL_WRITE):
+                    self.env.pop(key, None)
 
     def run_streams(self):
         """Execute the graph; return the value-writer stream in final form:
@@ -777,12 +825,6 @@ def _check_shard_lanes(shard_lanes, par_n: int) -> None:
         f"lanes over {m} GPUs are not ported yet ({_DIST_SLICE})")
 
 
-def _refuse_unported(schedule: Schedule) -> None:
-    if schedule.tile:
-        raise NotImplementedError(
-            f"tiled schedules are not ported yet ({_TILES_SLICE})")
-
-
 class CompiledExpr:
     """A Custard expression lowered once into plan-cached executables.
 
@@ -811,7 +853,6 @@ class CompiledExpr:
                  dims: Dict[str, int], *, use_kernels: bool = True,
                  device=None, shard_lanes: Optional[bool] = None):
         self.device = co.resolve_device(device)
-        _refuse_unported(schedule)
         self.assign: Assignment = parse(expr) if isinstance(expr, str) else expr
         self.fmt = fmt
         self.schedule = schedule
@@ -1253,39 +1294,247 @@ class CompiledExpr:
 
 
 # ---------------------------------------------------------------------------
+# tiled out-of-core execution (DESIGN.md §7, docs/TILING.md)
+# ---------------------------------------------------------------------------
+
+class TiledExpr:
+    """Out-of-core engine: stream coordinate-space tiles through ONE
+    plan-cached per-tile engine, accumulating the partial COOs.
+
+    The port of the reference's ``TiledExpr``. An expression whose untiled
+    device allocation exceeds the memory budget executes as a grid of
+    coordinate tiles (``Schedule.tile``, ``{var: n_tiles}``): every tiled
+    variable's coordinate space partitions into ``n`` contiguous chunks,
+    and each grid cell runs the SAME expression over zero-padded operand
+    slices with the tiled extents shrunk to one chunk
+    (``tiling.slice_operands``). Every tile shares the expression,
+    formats, schedule and (padded) extents, so all tiles resolve to ONE
+    process-wide ``CompiledExpr``, and the shared input buckets
+    (``_measure_hints``) put every tile on ONE input signature: the first
+    tile records capacities and builds the plan, every later tile hits
+    it. Tile partials merge through ``coord_ops.accumulate_coo`` (one
+    ``keyed_union_reduce`` a tile on ``device``; on the GPU the
+    ``scatter_workspace`` kernel for a result key space up to
+    ``DENSE_REDUCE_BOUND``, else the sort-merge on ``segment_reduce``):
+    contraction-tiled partials overlap (reduce-merge), result-tiled
+    partials are disjoint (concat-merge). The running result lives on the
+    host; one tile's working set is on the device at a time.
+
+    Built by ``compile_expr`` whenever the schedule carries ``tile`` or a
+    ``mem_budget`` forces one; quacks like ``CompiledExpr`` for the
+    serving paths (``__call__``/``execute``/``execute_batch``/
+    ``execute_many``/``stats``, and the ``low``/``par_n`` facets).
+    """
+
+    def __init__(self, expr, fmt: Format, schedule: Schedule,
+                 dims: Dict[str, int], *, use_kernels: bool = True,
+                 device=None, shard_lanes: Optional[bool] = None,
+                 mem_budget: Optional[int] = None,
+                 densities: Optional[Dict[str, float]] = None):
+        self.device = co.resolve_device(device)
+        self.assign: Assignment = (parse(expr) if isinstance(expr, str)
+                                   else expr)
+        self.fmt = fmt
+        self.schedule = schedule
+        self.dims = dict(dims)
+        tile = tiling.normalize_tile(schedule)
+        tiling.check_tile(self.assign, tile, schedule=schedule)
+        for v, n in tile.items():
+            if n > dims[v]:
+                raise ValueError(f"tile {v}:{n} exceeds its extent "
+                                 f"{dims[v]}")
+        self.tile_of = tile
+        self.n_tiles = tiling.n_tiles(tile)
+        self.inner_dims = tiling.tile_extents(self.dims, tile)
+        inner = dataclasses.replace(schedule, tile={})
+        self.mem_budget = (None if mem_budget is None
+                           else tiling.parse_budget(mem_budget))
+        self.tile_bytes = tiling.estimate_call_bytes(
+            self.assign, fmt, inner, self.inner_dims, densities=densities)
+        if self.mem_budget is not None and self.tile_bytes > self.mem_budget:
+            raise tiling.MemoryBudgetExceeded(
+                f"one tile of tile={tile} still needs "
+                f"~{tiling.format_bytes(self.tile_bytes)} > budget "
+                f"{tiling.format_bytes(self.mem_budget)}; tile finer",
+                estimate=self.tile_bytes, budget=self.mem_budget)
+        # ONE engine for every tile: identical expression/format/schedule/
+        # extents/device => the process-wide cached CompiledExpr, whose
+        # plan cache all tiles share
+        self.engine = compile_expr(self.assign, fmt, inner, self.inner_dims,
+                                   use_kernels=use_kernels,
+                                   device=self.device,
+                                   shard_lanes=shard_lanes)
+        # the tile merge: the same dispatch entry as the engine's
+        # lane/term merge
+        self._union_reduce = (kops.sam_primitive("keyed_union_reduce",
+                                                 self.device)
+                              if use_kernels else None)
+        self.rvars = self.engine.orig_result_order   # orig vars, loop order
+        self._scalar = not self.rvars
+        self._out_strides = [(v, self.dims[v]) for v in self.rvars]
+        bound = 1
+        for _, d in self._out_strides:
+            bound *= d
+        self._key_bound = bound if bound <= co.DENSE_REDUCE_BOUND else None
+        # running max input bucket per (tensor, level) across tiles, so
+        # EVERY tile pads to one shared signature and hits one plan
+        self._hints: Dict[str, List[int]] = {}
+        self.stats = {"calls": 0, "tile_calls": 0, "tiles": self.n_tiles,
+                      "batch_calls": 0}
+
+    # engine facets the serving paths read ------------------------------
+    @property
+    def low(self):
+        return self.engine.low
+
+    @property
+    def par_n(self) -> int:
+        return self.engine.par_n
+
+    # -- execution -------------------------------------------------------
+    def _global_keys(self, coords: np.ndarray,
+                     tids: Dict[str, int]) -> np.ndarray:
+        """Shift a tile's result coordinates by its offsets and flatten
+        into int64 keys over the FULL result extents."""
+        keys = np.zeros(len(coords), dtype=np.int64)
+        for col, (v, dim) in enumerate(self._out_strides):
+            c = coords[:, col]
+            if v in self.tile_of:
+                c = c + tids[v] * self.inner_dims[v]
+            keys = keys * dim + c
+        return keys
+
+    def _measure_hints(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Grow the shared per-level input buckets to cover every tile of
+        this operand set. Host-side only (fibertrees, no device tensors):
+        one extra walk over the operands keeps all tiles on ONE input
+        signature, so the first tile builds the plan and the rest hit it.
+        Building every tile's padded operands at once instead would hold
+        them all, which is the allocation the budget forbids; here at most
+        one tile is on the device at a time, and the hints persist across
+        calls. Levels are read as the engine ingests them (``s``/``h``/
+        ``m`` storage canonicalized to ``c``)."""
+        for tids in tiling.tile_grid(self.tile_of):
+            sliced = tiling.slice_operands(self.assign, arrays, self.dims,
+                                           self.tile_of, tids)
+            for name, ft in self.engine.low.build_inputs(sliced).items():
+                ft = _engine_tree(ft)
+                cur = self._hints.setdefault(name, [0] * len(ft.levels))
+                for i, lv in enumerate(ft.levels):
+                    if lv.format == COMPRESSED:
+                        cur[i] = max(cur[i], _bucket(len(lv.crd)))
+
+    def _finalize(self, acc_k: np.ndarray, acc_v: np.ndarray,
+                  total: float) -> FiberTree:
+        """Assemble the merged tile partials (the accumulated COO, or the
+        running scalar ``total``) into the result ``FiberTree`` in the
+        ORIGINAL coordinate space, exactly as the untiled ``CompiledExpr``
+        returns it."""
+        if self._scalar:
+            return FiberTree.from_dense(np.asarray(float(total)), "")
+        # coo_to_fibertree also drops zeros (cancelled partial sums)
+        lhs = self.assign.lhs
+        return coo_to_fibertree(
+            acc_k, acc_v, np.ones(len(acc_k), bool), self._out_strides,
+            tuple(self.dims[v] for v in self.rvars),
+            self.fmt.of(lhs.tensor, len(self.rvars))
+            or "c" * len(self.rvars),
+            tuple(lhs.vars.index(v) for v in self.rvars))
+
+    def __call__(self, arrays: Dict[str, np.ndarray]) -> FiberTree:
+        """Execute one operand set tile by tile; returns the result
+        ``FiberTree`` in the ORIGINAL coordinate space, exactly as the
+        untiled ``CompiledExpr`` would."""
+        self.stats["calls"] += 1
+        self._measure_hints(arrays)
+        total = 0.0
+        acc_k = np.zeros(0, np.int64)
+        acc_v = np.zeros(0, np.float32)
+        for tids in tiling.tile_grid(self.tile_of):
+            sliced = tiling.slice_operands(self.assign, arrays, self.dims,
+                                           self.tile_of, tids)
+            coords, vals = self.engine.execute_coo(sliced,
+                                                   hints=self._hints)
+            self.stats["tile_calls"] += 1
+            if coords is None:                       # scalar partial
+                total += vals
+                continue
+            acc_k, acc_v = co.accumulate_coo(
+                acc_k, acc_v, self._global_keys(coords, tids), vals,
+                key_bound=self._key_bound,
+                union_reduce_impl=self._union_reduce, device=self.device)
+        return self._finalize(acc_k, acc_v, total)
+
+    def execute(self, arrays: Dict[str, np.ndarray]) -> FiberTree:
+        """Alias of ``__call__`` (API parity with ``CompiledExpr``)."""
+        return self(arrays)
+
+    def execute_batch(self, arrays_list: Sequence[Dict[str, np.ndarray]]
+                      ) -> List[FiberTree]:
+        """Requests execute one after another: under a memory budget the
+        tile stream IS the batching axis (each tile still reuses the
+        shared per-tile plan, so warm requests never rebuild it)."""
+        self.stats["batch_calls"] += 1
+        return [self(a) for a in arrays_list]
+
+    execute_many = execute_batch
+
+
+_TILED: Dict[Tuple, TiledExpr] = {}
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
 def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
-                 use_kernels: bool = True, device=None, mem_budget=None,
-                 shard_lanes: Optional[bool] = None
-                 ) -> "CompiledExpr | BsrEngine":
+                 use_kernels: bool = True, device=None,
+                 shard_lanes: Optional[bool] = None, sparsity=None,
+                 mem_budget=None, auto_tile: bool = True
+                 ) -> "CompiledExpr | TiledExpr | BsrEngine":
     """Compile an expression once into a plan-cached engine.
 
     Args:
         expr: tensor index notation text or a parsed ``Assignment``.
         fmt: per-tensor level formats.
-        schedule: a ``Schedule`` (``"auto"`` is not ported yet).
+        schedule: a ``Schedule``, or ``"auto"`` to resolve one through the
+            autoscheduler + the persistent on-disk schedule cache (keyed
+            by expression + format + dims bucket + sparsity bucket, so a
+            shape is searched at most once per cache; DESIGN.md §5).
         dims: extent of every index variable.
         use_kernels: route the hot primitives through the
             ``kernels/ops`` dispatch table (the CUDA kernels on a GPU).
         device: where the engine runs; CUDA by default, and an error when
             there is no GPU (pass ``device="cpu"`` for the CPU).
-        mem_budget: the reference's out-of-core budget; not ported yet.
         shard_lanes: §4.4 lane placement. None or False runs every lane
             of a ``parallelize`` schedule on ``device``; True (or an int
             device bound) requires a mesh of GPUs: ``ValueError`` when
             none fits, ``NotImplementedError`` where one would (lanes over
             GPUs belong to the distributed slice).
+        sparsity: density hint for ``schedule="auto"`` and the memory
+            estimator (float or per-tensor dict; defaults to
+            ``autoschedule.DEFAULT_SPARSITY``).
+        mem_budget: peak-device-allocation budget in bytes (int or a
+            string like ``"64MB"``). A schedule whose untiled estimate
+            (``tiling.estimate_call_bytes``) exceeds it is routed through
+            the out-of-core ``TiledExpr`` engine (``auto_tile=True``, the
+            default) or refused with ``tiling.MemoryBudgetExceeded``
+            (``auto_tile=False``); ``schedule="auto"`` additionally bounds
+            the schedule search with the budget (DESIGN.md §7,
+            docs/TILING.md).
+        auto_tile: set False to refuse over-budget expressions instead
+            of tiling them.
 
     Returns:
-        The process-wide engine for this configuration: repeated calls
-        with the same (expression, formats, schedule, dims, use_kernels,
-        device) return the SAME engine, so its plans are shared. The
-        schedule's split/parallelize spec is part of the key. A
-        block-sparse contraction that ``bsr_pattern`` recognizes gets a
-        ``BsrEngine``, shared by (expression, formats, schedule, dims,
-        device).
+        The process-wide engine for this configuration: a
+        ``CompiledExpr``, or a ``TiledExpr`` when the schedule carries
+        ``tile`` (explicitly or via the budget). Repeated calls with the
+        same (expression, formats, schedule, dims, use_kernels, device)
+        return the SAME engine, so its plans are shared; a tiled engine
+        is also keyed by the budget and the density hint. The schedule's
+        split/parallelize/tile spec is part of the key. A block-sparse
+        contraction that ``bsr_pattern`` recognizes gets a ``BsrEngine``,
+        shared by (expression, formats, schedule, dims, device).
 
     >>> import numpy as np
     >>> from repro_torch.core.schedule import Format, Schedule
@@ -1295,13 +1544,43 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
     ...                    device="cpu")
     >>> eng({"B": np.eye(2, 3), "c": np.ones(3)}).to_dense()
     array([1., 1.])
+
+    A tiled schedule streams out-of-core with identical results:
+
+    >>> tiled = compile_expr("x(i) = B(i,j) * c(j)",
+    ...                      Format({"B": "cc", "c": "c"}),
+    ...                      Schedule(loop_order=("i", "j"),
+    ...                               tile={"j": 3}), {"i": 2, "j": 3},
+    ...                      device="cpu")
+    >>> tiled.n_tiles, tiled({"B": np.eye(2, 3), "c": np.ones(3)}).to_dense()
+    (3, array([1., 1.]))
     """
+    if mem_budget is not None:
+        mem_budget = tiling.parse_budget(mem_budget)
     if isinstance(schedule, str):
         if schedule != "auto":
             raise ValueError(
                 f"schedule must be a Schedule or 'auto', got {schedule!r}")
-        raise NotImplementedError(
-            f"schedule='auto' is not ported yet ({_AUTO_SLICE})")
+        from .autoschedule import resolve_schedule
+        # the search ranks under the parallelism this engine will run.
+        # With shard_lanes None or False the port runs every lane on one
+        # device (_check_shard_lanes), so it searches for one device; the
+        # reference passes None there, its host's device count, which is 1
+        # on the CPU and on a one-GPU machine too. True or an int asks for
+        # a mesh, as in the reference (and is refused below)
+        if shard_lanes is None or shard_lanes is False:
+            n_dev = 1
+        elif shard_lanes is True:
+            n_dev = None                     # the host's CUDA devices
+        else:
+            n_dev = int(shard_lanes)
+        # auto_tile=False means "refuse rather than tile": keep the budget
+        # OUT of the search (a budgeted search returns tiled schedules) so
+        # the refusal gate below sees an untiled winner
+        kw = ({} if mem_budget is None or not auto_tile
+              else {"mem_budget": mem_budget})
+        schedule = resolve_schedule(expr, fmt, dims, sparsity=sparsity,
+                                    device_count=n_dev, **kw).schedule
     dev = co.resolve_device(device)
     assign = parse(expr) if isinstance(expr, str) else expr
 
@@ -1317,16 +1596,45 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
             _BSR[bkey] = beng
         return beng
 
-    if mem_budget is not None:
-        raise NotImplementedError(
-            f"mem_budget routes through tiles, not ported yet "
-            f"({_TILES_SLICE})")
-    _refuse_unported(schedule)
     # resolved before keying, so a refused lane placement never returns a
     # cached engine
     par_n = max([n for n in schedule.parallelize.values() if n > 1],
                 default=1)
     _check_shard_lanes(shard_lanes, par_n)
+
+    # -- memory-budget gate + tiled routing (DESIGN.md §7) ----------------
+    if mem_budget is not None or schedule.tile:
+        densities = None
+        if sparsity is not None:
+            from .autoschedule import resolve_densities
+            densities = resolve_densities(assign, sparsity)
+        if mem_budget is not None and not schedule.tile:
+            if not auto_tile:
+                # refuse over-budget untiled requests loudly
+                tiling.require_budget(assign, fmt, schedule, dims,
+                                      mem_budget, densities=densities)
+            else:
+                plan = tiling.resolve_plan(assign, fmt, schedule, dims,
+                                           mem_budget, densities=densities)
+                if plan.tile:
+                    schedule = dataclasses.replace(schedule,
+                                                   tile=dict(plan.tile))
+        if schedule.tile:
+            # densities steer the per-tile budget check, so they partition
+            # the tiled-engine cache
+            tkey = (expr_cache_key(assign, fmt, schedule, dims),
+                    use_kernels, str(dev), mem_budget,
+                    tuple(sorted(densities.items())) if densities
+                    else None)
+            teng = _TILED.get(tkey)
+            if teng is None:
+                teng = TiledExpr(assign, fmt, schedule, dims,
+                                 use_kernels=use_kernels, device=dev,
+                                 shard_lanes=shard_lanes,
+                                 mem_budget=mem_budget, densities=densities)
+                _TILED[tkey] = teng
+            return teng
+
     key = (expr_cache_key(assign, fmt, schedule, dims), use_kernels, str(dev))
     eng = _COMPILED.get(key)
     if eng is None:
@@ -1338,6 +1646,7 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
 
 def clear_compile_cache() -> None:
     _COMPILED.clear()
+    _TILED.clear()
     _BSR.clear()
 
 
@@ -1600,16 +1909,20 @@ class CompiledProgram:
     Fused pipelines (``LoweredProgram.components`` with >1 stage) become
     one ``_FusedChain`` — one plan-cached callable, intermediates living
     on ``device``. Every other stage runs through its own process-wide
-    ``CompiledExpr``, with dense materialization between units.
+    engine from ``compile_expr`` (a ``CompiledExpr``, or a ``TiledExpr``
+    when a memory budget tiles it), with dense materialization between
+    units.
 
     Calling the program returns one ``FiberTree`` per MATERIALIZED stage
     output; fused-away intermediates are never built and do not appear.
     """
 
-    def __init__(self, lp, *, use_kernels: bool = True, device=None):
+    def __init__(self, lp, *, use_kernels: bool = True, device=None,
+                 mem_budget=None, sparsity=None):
         self.device = co.resolve_device(device)
         self.lp = lp
         self.cache_key = program_cache_key(lp)
+        self.mem_budget = mem_budget
         segsum = intersect = coo_levels = None
         if use_kernels:
             segsum = kops.sam_primitive("keyed_segment_sum", self.device)
@@ -1618,10 +1931,14 @@ class CompiledProgram:
         self.units: List[Tuple[str, List[int], Any]] = []
         for comp in lp.components():
             if len(comp) == 1:
+                # a memory budget routes over-sized stages through the
+                # tiled engine; fused chains keep their own working sets
+                # (tiling a stage forbids fusing it, docs/TILING.md)
                 stg = lp.stages[comp[0]]
                 eng = compile_expr(stg.assign, lp.fmt, stg.schedule,
                                    stg.dims, use_kernels=use_kernels,
-                                   device=self.device)
+                                   device=self.device, mem_budget=mem_budget,
+                                   sparsity=sparsity)
                 self.units.append(("expr", comp, eng))
             else:
                 chain = _FusedChain([lp.stages[i] for i in comp],
@@ -1684,27 +2001,31 @@ def compile_program(program, fmt: Format, schedules, dims: Dict[str, int],
         program: program text (``;``/newline-separated assignments), a
             ``program.Program``, or a sequence of assignments.
         fmt: per-tensor formats, intermediates included.
-        schedules: a dict keyed by stage lhs tensor, or a sequence aligned
-            with the stages (``"auto"`` is not ported yet).
+        schedules: ``"auto"`` (each stage resolved through the
+            autoscheduler + persistent schedule cache), a dict keyed by
+            stage lhs tensor, or a sequence aligned with the stages.
         dims: extent of every index variable used by any stage.
         use_kernels: route the hot primitives (the chain's segment sums
             and ``coo_to_levels``, every unit's reduces) through the
             ``kernels/ops`` dispatch table (the CUDA kernels on a GPU).
-        sparsity: the reference's density hint for ``"auto"``; unused
-            until the autoscheduler is ported.
+        sparsity: density hint for ``schedules="auto"`` and, with a
+            budget, the per-stage memory estimates.
         fuse: set False to force materialization between all stages (the
             unfused comparison baseline).
-        mem_budget: the reference's out-of-core budget; not ported yet.
+        mem_budget: peak-device-allocation budget in bytes (int or
+            ``"64MB"``-style string); unfused stages whose untiled
+            estimate exceeds it execute through a ``TiledExpr``
+            (docs/TILING.md). Fused chains are not tiled: pass
+            ``fuse=False`` with a budget for a fully tiled program.
         device: where the program runs; CUDA by default, and an error when
             there is no GPU (pass ``device="cpu"`` for the CPU).
 
     Returns:
         The process-wide ``CompiledProgram`` for this configuration: the
         key is the per-stage canonical expression keys PLUS the fusion
-        plan (DESIGN.md §6), ``use_kernels`` and ``device``, so a fused
-        and an unfused build of the same program are distinct engines.
-        (The reference also keys on the budget, and on the density hint
-        when a budget is set; both must be None here.)
+        plan (DESIGN.md §6), ``use_kernels``, ``device``, the budget and,
+        when a budget is set, the density hint, so a fused and an unfused
+        build of the same program are distinct engines.
 
     >>> import numpy as np
     >>> from repro_torch.core.schedule import Format, Schedule
@@ -1719,16 +2040,25 @@ def compile_program(program, fmt: Format, schedules, dims: Dict[str, int],
     (['x'], [1.0, 1.0])
     """
     if mem_budget is not None:
-        raise NotImplementedError(
-            f"mem_budget routes through tiles, not ported yet "
-            f"({_TILES_SLICE})")
+        mem_budget = tiling.parse_budget(mem_budget)
     dev = co.resolve_device(device)
     lp = lower_program(program, fmt, schedules, dims, sparsity=sparsity,
                        fuse=fuse)
-    key = (program_cache_key(lp), use_kernels, str(dev))
+    # with a budget, the sparsity hint steers the per-stage tiling
+    # decision, so it joins the key (without one it only feeds "auto"
+    # resolution, which the program key already reflects); canonicalized
+    # so dict order and numpy scalars cannot split the cache
+    if mem_budget is None or sparsity is None:
+        skey = None
+    elif isinstance(sparsity, dict):
+        skey = tuple(sorted((k, float(v)) for k, v in sparsity.items()))
+    else:
+        skey = float(sparsity)
+    key = (program_cache_key(lp), use_kernels, str(dev), mem_budget, skey)
     hit = _COMPILED_PROGRAMS.get(key)
     if hit is None:
-        hit = CompiledProgram(lp, use_kernels=use_kernels, device=dev)
+        hit = CompiledProgram(lp, use_kernels=use_kernels, device=dev,
+                              mem_budget=mem_budget, sparsity=sparsity)
         _COMPILED_PROGRAMS[key] = hit
     return hit
 

@@ -9,11 +9,14 @@ compiled engine resolves its hot primitives here:
       fallback everywhere (the reference has no kernel for it).
   keyed_union_reduce   — the keyed merge of multi-term results; on the GPU
       the ``scatter_workspace`` kernel for a declared key bound up to
-      ``DENSE_REDUCE_BOUND``, else the reference's sort-merge with the
-      ``segment_reduce`` kernel as its inner sum.
+      ``DENSE_REDUCE_BOUND``; up to ``SEGMENT_DENSE_BOUND`` the
+      ``segment_reduce`` kernel over the key space itself (a dense
+      workspace of ``key_bound`` rows, no sort); beyond it the reference's
+      sort-merge with ``segment_reduce`` as its inner sum.
   mul_reduce           — a mul-ALU product folded into the final keyed
       reduce; on the GPU ``scatter_workspace`` in ``mul_pair`` mode (the
-      product is formed inside the kernel), or the sort-merge as above.
+      product is formed inside the kernel), or ``segment_reduce`` over the
+      key space, or the sort-merge, by key bound as above.
   intersect_mul_reduce — the whole Gustavson inner loop; on the GPU the
       ``fused_stream`` kernel. The engine does not resolve it (neither
       does the reference's).
@@ -67,17 +70,58 @@ def _keyed_segment_sum_cuda(vals, seg_ids, num_segments: int):
                           num_segments=num_segments)[:, 0]
 
 
+# Beyond the workspace kernel's bound, a key space up to this many slots
+# still reduces densely on the card: ``segment_reduce`` sums [value, 1]
+# rows straight into a (key_bound, 2) workspace of [sums, hits] (at most
+# 256 MiB in float32). The sort-merge it replaces sorts a plan's whole
+# capacity, and a sort holds about 46 bytes a row on the card (keys,
+# sorted keys, permutation and the sort's own buffers), the largest
+# allocation of a tile. ``segment_reduce`` rather than a wider
+# ``scatter_workspace`` keeps the keyed reduces of large key spaces on the
+# kernel that ran them before (the sort-merge's inner sum).
+SEGMENT_DENSE_BOUND = 1 << 25
+
+
 def _dense(key_bound) -> bool:
     return key_bound is not None and int(key_bound) <= _co.DENSE_REDUCE_BOUND
+
+
+def _segment_dense(key_bound) -> bool:
+    return key_bound is not None and int(key_bound) <= SEGMENT_DENSE_BOUND
+
+
+def _segment_workspace(keys, valid, cap: int, key_bound, a_vals,
+                       b_vals=None):
+    """A keyed reduce over a bounded key space in one ``segment_reduce``
+    launch: each live row adds [value, 1] into its key's row of a dense
+    workspace, which compacts like ``scatter_workspace``'s (a live key with
+    sum 0 keeps its slot). The value is ``a_vals``, or ``a_vals * b_vals``
+    formed straight into the workspace's input. Masked rows get the
+    dropped id, so the kernel never reads their (possibly garbage)
+    values."""
+    nseg = max(int(key_bound), 1)
+    acc = _build.acc_dtype(a_vals.dtype, "keyed_union_reduce")
+    cols = torch.empty((valid.shape[0], 2), dtype=acc, device=valid.device)
+    if b_vals is None:
+        cols[:, 0] = a_vals
+    else:
+        torch.mul(a_vals, b_vals, out=cols[:, 0])
+    cols[:, 1] = valid
+    ids = keys.to(torch.int32, copy=True).masked_fill_(~valid, nseg)
+    ws = segment_reduce(cols, ids, num_segments=nseg)
+    return _co.dense_workspace_result(ws[:, 0], ws[:, 1], cap)
 
 
 def _keyed_union_reduce_cuda(keys, vals, valid, cap: int,
                              segment_sum_impl=None, key_bound=None):
     """Keyed merge: one ``scatter_workspace`` pass produces the sums and
-    the appearance counts (a live key with sum 0 keeps its slot). Beyond
-    the dense bound, the sort-merge with the ``segment_reduce`` kernel as
-    its inner sum (``segment_sum_impl`` is ignored: on a CUDA tensor the
+    the appearance counts (a live key with sum 0 keeps its slot). Up to
+    ``SEGMENT_DENSE_BOUND`` keys, ``segment_reduce`` over the key space;
+    beyond it, the sort-merge with the ``segment_reduce`` kernel as its
+    inner sum (``segment_sum_impl`` is ignored: on a CUDA tensor the
     inner sum is always the kernel)."""
+    if not _dense(key_bound) and _segment_dense(key_bound):
+        return _segment_workspace(keys, valid, cap, key_bound, vals)
     if not _dense(key_bound):
         return _co.keyed_union_reduce(keys, vals, valid, cap,
                                       _keyed_segment_sum_cuda,
@@ -95,8 +139,13 @@ def _mul_reduce_cuda(keys, a_vals, b_vals, valid, cap: int, *,
                      key_bound=None, segment_sum_impl=None):
     """Fused multiply × keyed reduce: the product is formed inside the
     workspace kernel (``mul_pair``), so the engine's deferred mul-ALU
-    never materializes a product stream. Beyond the dense bound, the
-    sort-merge over the product with the ``segment_reduce`` kernel."""
+    never materializes a product stream. Beyond the dense bound,
+    ``segment_reduce`` over the key space up to ``SEGMENT_DENSE_BOUND``
+    keys, else the sort-merge over the product with the ``segment_reduce``
+    kernel."""
+    if not _dense(key_bound) and _segment_dense(key_bound):
+        return _segment_workspace(keys, valid, cap, key_bound, a_vals,
+                                  b_vals)
     if not _dense(key_bound):
         return _co.mul_reduce(keys, a_vals, b_vals, valid, cap,
                               key_bound=key_bound,

@@ -28,10 +28,13 @@ from repro.core.schedule import Schedule as RSchedule  # noqa: E402
 from repro_torch.core import custard  # noqa: E402
 from repro_torch.core.convert import tree_from_arrays  # noqa: E402
 from repro_torch.core.custard import expr_cache_key, lower  # noqa: E402
+from repro_torch.core.program import numpy_reference  # noqa: E402
 from repro_torch.core.schedule import Format, Schedule  # noqa: E402
+from repro_torch.core.simulator import simulate_expr  # noqa: E402
+from repro_torch.core.tiling import estimate_call_bytes  # noqa: E402
 from repro_torch.core.torch_backend import (  # noqa: E402
-    CompiledExpr, JTensor, clear_compile_cache, compile_expr, execute_expr,
-    execute_graph)
+    CompiledExpr, JTensor, TiledExpr, clear_compile_cache, compile_expr,
+    compile_program, execute_expr, execute_graph)
 from repro_torch.kernels import ops as kops  # noqa: E402
 
 CPU = "cpu"
@@ -385,44 +388,77 @@ def test_bitvector_storage_is_refused():
         eng(arrays)
 
 
-# -- what is not ported yet refuses loudly -------------------------------------
+# -- lanes over GPUs refuse loudly; tiles and "auto" run ---------------------
 
 @pytest.mark.parametrize("what", ["split", "parallelize", "tile", "auto",
                                   "mem_budget", "lower_auto",
                                   "lower_program"])
-def test_unported_paths_raise_not_implemented(what, monkeypatch):
+def test_unported_paths_raise_not_implemented(what, monkeypatch, tmp_path):
     # split and parallelize lanes are ported; spreading the lanes over
-    # GPUs is not, so with four GPUs a required lane mesh refuses
+    # GPUs is not, so with four GPUs a required lane mesh refuses. Tiles,
+    # budgets and "auto" schedules (once refused here too) now run: each
+    # of those cases holds its path against numpy
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setenv("SAM_SCHEDULE_CACHE", str(tmp_path / "s.json"))
     expr = "x(i) = B(i,j) * c(j)"
     fmt = Format({"B": "cc", "c": "c"})
     dims = {"i": 4, "j": 6}
     base = dict(loop_order=("i", "j"))
-    calls = {
+    refusals = {
         "split": lambda: compile_expr(expr, fmt, Schedule(
             **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU,
             shard_lanes=True),
         "parallelize": lambda: CompiledExpr(expr, fmt, Schedule(
             **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU,
             shard_lanes=2),
-        "tile": lambda: compile_expr(expr, fmt, Schedule(
-            **base, tile={"j": 2}), dims, device=CPU),
-        "auto": lambda: compile_expr(expr, fmt, "auto", dims, device=CPU),
-        "mem_budget": lambda: compile_expr(expr, fmt, Schedule(**base), dims,
-                                           device=CPU, mem_budget="1MB"),
-        "lower_auto": lambda: lower(expr, fmt, "auto", dims),
-        # programs are ported; their "auto" schedules are not
-        "lower_program": lambda: custard.lower_program(
-            "T(i,j) = B(i,k) * C(k,j); A(i,j) = T(i,k) * E(k,j)",
-            fmt, "auto", {"i": 4, "j": 4, "k": 4}),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calls[what]()
+    if what in refusals:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            refusals[what]()
+        return
+    rng = np.random.default_rng(len(what))
+    arrays = {"B": sparse(rng, (4, 6)), "c": sparse(rng, 6, 0.8)}
+    want = arrays["B"] @ arrays["c"]
+    if what == "lower_auto":
+        low = lower(expr, fmt, "auto", dims)
+        # the pick is cached: resolving again answers with the same one
+        # (lower searches for the one device its lanes run on, whatever
+        # the host's count)
+        from repro_torch.core.autoschedule import resolve_schedule
+        res = resolve_schedule(expr, fmt, dims, device_count=1)
+        assert res.cache_hit and lower(expr, fmt, res.schedule, dims) is low
+        got = simulate_expr(expr, fmt, res.schedule, arrays, dims).dense
+    elif what == "lower_program":
+        text = "T(i,j) = B(i,k) * C(k,j); A(i,j) = T(i,k) * E(k,j)"
+        pdims = {"i": 4, "j": 4, "k": 4}
+        lp = custard.lower_program(text, Format(default="c"), "auto", pdims)
+        parrays = {t: sparse(rng, (4, 4), 0.5) for t in "BCE"}
+        out = compile_program(text, Format(default="c"), "auto", pdims,
+                              device=CPU)(parrays)
+        assert [s.schedule for s in lp.stages] == [
+            s.schedule for s in compile_program(
+                text, Format(default="c"), "auto", pdims,
+                device=CPU).lp.stages]
+        got, want = out["A"].to_dense(), numpy_reference(text, parrays)["A"]
+    else:
+        eng = {"tile": lambda: compile_expr(
+                   expr, fmt, Schedule(**base, tile={"j": 2}), dims,
+                   device=CPU),
+               "auto": lambda: compile_expr(expr, fmt, "auto", dims,
+                                            device=CPU),
+               "mem_budget": lambda: compile_expr(
+                   expr, fmt, Schedule(**base), dims, device=CPU,
+                   mem_budget=estimate_call_bytes(
+                       expr, fmt, Schedule(**base), dims) * 3 // 4)}[what]()
+        assert isinstance(eng, TiledExpr) == (what != "auto")
+        got = eng(arrays).to_dense()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_execute_expr_split_falls_back_to_eager():
-    # the compiled engine refuses tiles, so a split and tiled schedule runs
-    # on the eager path, which strips the tiles and unsplits the result
+    # a split and tiled schedule runs compiled, through a TiledExpr over a
+    # split per-tile engine (the eager path, which strips the tiles and
+    # unsplits the result, is the fallback for what the engine refuses)
     rng = np.random.default_rng(13)
     arrays = {"B": sparse(rng, (4, 6)), "c": sparse(rng, 6, 0.8)}
     got = execute_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc", "c": "c"}),

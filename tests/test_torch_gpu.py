@@ -15,8 +15,11 @@ tensor-core and a CUDA-core kernel by shape; each case checks which
 route's counter advanced, and ``spmm_bsr`` and ``sddmm_bsr`` on
 standard-normal float32 must stay within the per-element worst case of
 3xTF32. ``coo_to_levels`` is also held at extents that are not powers of
-two, with negative keys and invalid rows in the middle. This file needs no JAX, so it runs
-on a GPU machine as it is:
+two, with negative keys and invalid rows in the middle. A ``TiledExpr`` on the
+card must return the CPU's FiberTree (its tile merge on ``scatter_workspace``
+and on ``segment_reduce``), a budgeted tiled call must peak below the untiled
+estimate and free every tile's tensors, and ``schedule="auto"`` must run on
+the card. This file needs no JAX, so it runs on a GPU machine as it is:
 
     python -m pytest -q tests/test_torch_gpu.py
 """
@@ -629,3 +632,121 @@ def test_program_on_the_card_equals_the_cpu(cuda, fuse):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k].to_dense(), want[k].to_dense())
+
+
+# -- tiled out-of-core execution and "auto" on the card -----------------------
+
+def _spmm_dense_c(rng, ni, nk, nj, density):
+    return {"B": ((rng.random((ni, nk)) < density)
+                  * rng.integers(1, 9, (ni, nk))).astype(float),
+            "C": rng.integers(1, 9, (nk, nj)).astype(float)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,merge", [
+    ({"i": 64, "j": 48, "k": 40}, "scatter_workspace"),     # 3072 keys
+    ({"i": 2048, "j": 1024, "k": 16}, "segment_reduce"),   # 2**21 keys
+    ({"i": 4096, "j": 1024, "k": 16}, "segment_reduce")])  # 2**22 keys
+def test_tiled_expr_on_the_card_equals_the_cpu(cuda, dims, merge,
+                                               monkeypatch):
+    """A 2 x 2 tile grid (row tiles concatenate, contraction tiles reduce)
+    on the card returns the CPU's FiberTree. Each reduce takes its route
+    by key bound: a tile's ``mul_reduce`` (half the rows' keys) runs on
+    the workspace kernel up to 2^20 keys and as one dense
+    ``segment_reduce`` above; the tile merge runs on the workspace kernel
+    up to 2^20 keys and on the sort-merge, whose inner sum is
+    ``segment_reduce``, above."""
+    from repro_torch.core import coord_ops as co
+    from repro_torch.core.torch_backend import TiledExpr
+
+    routes = {"segment_dense": 0, "sort": 0}
+
+    def spy(route, fn):
+        def counted(*args, **kw):
+            routes[route] += 1
+            return fn(*args, **kw)
+        return counted
+
+    monkeypatch.setattr(kops, "_segment_workspace",
+                        spy("segment_dense", kops._segment_workspace))
+    monkeypatch.setattr(co, "keyed_union_reduce",
+                        spy("sort", co.keyed_union_reduce))
+    arrays = _spmm_dense_c(np.random.default_rng(12), dims["i"], dims["k"],
+                           dims["j"], 0.2)
+    expr, fmt = "X(i,j) = B(i,k) * C(k,j)", Format({"B": "cc", "C": "dd"})
+    sch = Schedule(loop_order=("i", "k", "j"), tile={"i": 2, "k": 2})
+    eng = compile_expr(expr, fmt, sch, dims)
+    assert isinstance(eng, TiledExpr) and eng.device.type == "cuda"
+    m0, h0 = eng.engine.stats["plan_misses"], eng.engine.stats["plan_hits"]
+    kops.reset_launch_counts()
+    got = eng(arrays)
+    counts = kops.launch_counts()
+    assert counts[merge] >= 1
+    tile_dense = dims["i"] // 2 * dims["j"] > co.DENSE_REDUCE_BOUND
+    merge_dense = dims["i"] * dims["j"] <= co.DENSE_REDUCE_BOUND
+    # each of the four tiles reduces at least once (its first also in
+    # the eager pass that records the plan's capacities)
+    assert (routes["segment_dense"] >= 4 if tile_dense
+            else routes["segment_dense"] == 0)
+    assert (routes["sort"] > 0) == (not merge_dense)
+    assert (counts["scatter_workspace"] > 0) == (not tile_dense
+                                                 or merge_dense)
+    assert (counts["segment_reduce"]
+            >= routes["segment_dense"] + routes["sort"])
+    assert eng.engine.stats["plan_misses"] - m0 == 1
+    assert eng.engine.stats["plan_hits"] - h0 == 3
+    monkeypatch.undo()
+    want = compile_expr(expr, fmt, sch, dims, device="cpu")(arrays)
+    np.testing.assert_array_equal(got.to_dense(), want.to_dense())
+    np.testing.assert_array_equal(got.to_dense(), arrays["B"] @ arrays["C"])
+
+
+@pytest.mark.gpu
+def test_tiled_expr_peak_memory_below_the_untiled_estimate(cuda):
+    """Under a budget that forces tiles, the tiled call's peak allocation
+    stays below the untiled call's estimate, and no tile's uploads or
+    plan outputs outlive the call. The budget itself is not held: the
+    port's tiles hold more than the estimate models (ROADMAP queue 3,
+    item 4)."""
+    from repro_torch.core import tiling
+
+    dims = {"i": 2048, "j": 256, "k": 2048}
+    dens = {"B": 0.01, "C": 1.0}
+    expr, fmt = "X(i,j) = B(i,k) * C(k,j)", Format({"B": "cc", "C": "dd"})
+    sch = Schedule(loop_order=("i", "k", "j"))
+    untiled = tiling.estimate_call_bytes(expr, fmt, sch, dims,
+                                         densities=dens)
+    eng = compile_expr(expr, fmt, sch, dims, mem_budget=untiled // 3,
+                       sparsity=dens)
+    assert eng.n_tiles >= 4
+    arrays = _spmm_dense_c(np.random.default_rng(13), 2048, 2048, 256, 0.01)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = eng(arrays)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak < untiled, (peak, untiled, eng.tile_bytes)
+    assert torch.cuda.memory_allocated() == before
+    np.testing.assert_array_equal(got.to_dense(), arrays["B"] @ arrays["C"])
+
+
+@pytest.mark.gpu
+def test_auto_schedule_runs_on_the_card(cuda, tmp_path, monkeypatch):
+    monkeypatch.setenv("SAM_SCHEDULE_CACHE", str(tmp_path / "s.json"))
+    rng = np.random.default_rng(14)
+    dims = {"i": 40, "j": 30, "k": 20}
+    arrays = {"B": ((rng.random((40, 20)) < 0.3)
+                    * rng.integers(1, 9, (40, 20))).astype(float),
+              "C": ((rng.random((20, 30)) < 0.3)
+                    * rng.integers(1, 9, (20, 30))).astype(float)}
+    expr, fmt = "X(i,j) = B(i,k) * C(k,j)", Format({"B": "cc", "C": "cc"})
+    eng = compile_expr(expr, fmt, "auto", dims, sparsity=0.3)
+    assert eng.device.type == "cuda"
+    kops.reset_launch_counts()
+    got = eng(arrays)
+    assert sum(kops.launch_counts().values()) > 0
+    cpu = compile_expr(expr, fmt, "auto", dims, sparsity=0.3, device="cpu")
+    assert cpu.schedule == eng.schedule          # one cached pick
+    np.testing.assert_array_equal(got.to_dense(), cpu(arrays).to_dense())
+    np.testing.assert_array_equal(got.to_dense(), arrays["B"] @ arrays["C"])

@@ -249,6 +249,31 @@ def test_mul_reduce_entry_equals_reference(seed, dense):
         assert_union_equal(pal, got, "pallas")
 
 
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("entry", ["union", "mul"])
+@pytest.mark.parametrize("bound", ["segment", "sort"])
+def test_reduce_entries_by_key_bound_equal_reference(seed, entry, bound):
+    """Beyond the workspace kernel's bound the entries reduce densely on
+    segment_reduce up to SEGMENT_DENSE_BOUND keys, then by the sort-merge:
+    either way the reference's sort-merge result, bit for bit."""
+    keys, a, valid, _ = keyed_stream(seed + 20)
+    kb = (kops.SEGMENT_DENSE_BOUND if bound == "segment"
+          else kops.SEGMENT_DENSE_BOUND + 1)
+    keys = keys * (kb // 64)                 # spread over the key space
+    if entry == "union":
+        args = (keys, a, valid)
+        got = kops._keyed_union_reduce_cuda(*map(t, args), 48, key_bound=kb)
+        ref = rco.keyed_union_reduce(*map(jnp.asarray, args), 48,
+                                     key_bound=kb)
+    else:
+        b = np.random.default_rng(seed).integers(-4, 5, len(a)).astype(
+            np.float32)
+        args = (keys, a, b, valid)
+        got = kops._mul_reduce_cuda(*map(t, args), 48, key_bound=kb)
+        ref = rco.mul_reduce(*map(jnp.asarray, args), 48, key_bound=kb)
+    assert_union_equal(ref, got, f"{entry} at key bound {kb}")
+
+
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("dense", [True, False])
 def test_intersect_mul_reduce_entry_equals_reference(seed, dense):

@@ -13,9 +13,11 @@
   the reference's ``coord_ops.coo_to_levels`` bit for bit, dtypes
   included, also beyond the TPU kernel's guards (capacities above 4096, a
   level extent of 2**24 and more), and under capacity overflow.
-* ``"auto"`` schedules and ``mem_budget`` are refused, each naming its
-  ROADMAP.md slice; a split stage runs unfused and equals the unsplit
-  program.
+* ``"auto"`` schedules (for the program or one stage) and a program
+  under ``mem_budget`` (its over-budget unfused stage a ``TiledExpr``)
+  equal numpy and the unfused program; a split stage runs unfused and
+  equals the unsplit program; a tiled simulation gives the reference's
+  cycles.
 """
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from test_kernel_conformance import coo_levels_case  # noqa: E402
 from repro.core import coord_ops as rco  # noqa: E402
 from repro.core import jax_backend as rjb  # noqa: E402
 from repro.core import program as rprog  # noqa: E402
+from repro.core import simulator as rsimulator  # noqa: E402
 from repro.core.schedule import Format as RFormat  # noqa: E402
 from repro.core.schedule import Schedule as RSchedule  # noqa: E402
 from repro.models import moe_blocks  # noqa: E402
@@ -324,33 +327,55 @@ def test_program_chain_resolves_the_dispatch_entries():
     assert chain._intersect is kops.sam_primitive("sorted_intersect", CPU)
 
 
-# -- refusals ------------------------------------------------------------
+# -- "auto" programs, budgets and tiled simulation (once refused) --------
 
-def test_refusals_name_their_slice():
+def test_refusals_name_their_slice(tmp_path, monkeypatch):
+    # "auto" schedules, a program under a budget and a tiled simulation
+    # were refused until tiles and the autoscheduler were ported: each now
+    # runs and is held to the unfused program, numpy and the reference
+    monkeypatch.setenv("SAM_SCHEDULE_CACHE", str(tmp_path / "s.json"))
     _, (pt, pf, ps, dims) = both("sddmm_spmm")
-    with pytest.raises(NotImplementedError, match="still to port #2"):
-        tb.compile_program(pt, pf, "auto", dims, device=CPU)
-    with pytest.raises(NotImplementedError, match="still to port #2"):
-        tb.compile_program(pt, pf, {"T": "auto", "A": ps["A"]}, dims,
-                           device=CPU)
-    with pytest.raises(NotImplementedError, match="still to port #3"):
-        tb.compile_program(pt, pf, ps, dims, mem_budget="64MB", device=CPU)
+    arrays = CASES["sddmm_spmm"][5]()
+    want = tb.compile_program(pt, pf, ps, dims, fuse=False,
+                              device=CPU)(arrays)
+    ref = prog.numpy_reference(pt, arrays)
+    for name in want:
+        np.testing.assert_array_equal(want[name].to_dense(), ref[name])
+    for sch in ("auto", {"T": "auto", "A": ps["A"]}):
+        got = tb.compile_program(pt, pf, sch, dims, device=CPU)(arrays)
+        assert sorted(got) <= sorted(want)
+        for name in got:
+            np.testing.assert_array_equal(got[name].to_dense(), ref[name])
+    from repro_torch.core import tiling
+    est = tiling.estimate_call_bytes(prog.parse_program(pt).assigns[0], pf,
+                                     ps["T"], dims)
+    cp = tb.compile_program(pt, pf, ps, dims, fuse=False, mem_budget=est // 2,
+                            device=CPU)
+    assert any(isinstance(u, tb.TiledExpr) for _, _, u in cp.units)
+    got = cp(arrays)
+    for name in want:
+        np.testing.assert_array_equal(got[name].to_dense(),
+                                      want[name].to_dense())
     # a split stage is ported: it cannot fuse, so it runs as its own
     # CompiledExpr and gives the unfused unsplit program's results
     split = {"T": Schedule(loop_order=("i", "j", "k"), split={"i": 2}),
              "A": ps["A"]}
-    arrays = CASES["sddmm_spmm"][5]()
     got = tb.compile_program(pt, pf, split, dims, device=CPU)(arrays)
-    want = tb.compile_program(pt, pf, ps, dims, fuse=False,
-                              device=CPU)(arrays)
     assert sorted(got) == sorted(want)
     for name in want:
         np.testing.assert_array_equal(got[name].to_dense(),
                                       want[name].to_dense())
-    with pytest.raises(NotImplementedError, match="still to port #3"):
-        simulate_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc"}),
-                      Schedule(loop_order=("i", "j"), tile={"j": 3}),
-                      {"B": np.eye(2, 3), "c": np.ones(3)}, {"i": 2, "j": 3})
+    sim = simulate_expr("x(i) = B(i,j) * c(j)", Format({"B": "cc"}),
+                        Schedule(loop_order=("i", "j"), tile={"j": 3}),
+                        {"B": np.eye(2, 3), "c": np.ones(3)},
+                        {"i": 2, "j": 3})
+    rsim = rsimulator.simulate_expr(
+        "x(i) = B(i,j) * c(j)", RFormat({"B": "cc"}),
+        RSchedule(loop_order=("i", "j"), tile={"j": 3}),
+        {"B": np.eye(2, 3), "c": np.ones(3)}, {"i": 2, "j": 3})
+    assert (sim.cycles, sim.tiles) == (rsim.cycles, rsim.tiles) and \
+        sim.tiles == 3
+    np.testing.assert_array_equal(sim.dense, [1.0, 1.0])
 
 
 # -- coo_to_levels -------------------------------------------------------
