@@ -36,11 +36,13 @@ Phases:
       0.2%, C dd 16384 x 1024, order ikj, under mem_budget="4GB" with the
       density hint {B: 0.002, C: 1}: auto_tile=False must refuse with the
       untiled estimate 16,282,246,691 bytes; the tiled call must be a
-      TiledExpr of 4 tiles ({i: 2, k: 2}) equal to the oracle, record 1
-      plan miss and 3 hits, then 4 hits warm, free every tile's tensors,
-      launch segment_reduce, and peak (torch.cuda.max_memory_allocated)
-      within the budget, or else below the untiled estimate, the overshoot
-      printed as a FAULT line; the host stages are timed under cProfile;
+      TiledExpr of 4 tiles ({i: 2, k: 2}, 4,104,153,287 estimated bytes a
+      tile), each run in L pieces (lanes over i; L and the per-piece
+      capacity are printed), equal to the oracle, record 1 plan miss and 3
+      hits, then 4 hits warm, one lane dispatch a tile, free every tile's
+      tensors, launch segment_reduce, and peak
+      (torch.cuda.max_memory_allocated) within the budget on the first
+      and on the warm call; the host stages are timed under cProfile;
   (p) schedule="auto": (d)'s product resolved through the autoscheduler
       (sparsity 0.005, one device, a schedule cache in a temporary
       directory), run through compile_expr and equal to (d)'s oracle; a
@@ -85,10 +87,16 @@ Phases:
       float64; spmm_bsr and bsr_attention are timed in bfloat16 at (g) and
       (j); the CUDA-core kernels that the tensor-core route replaced at
       (g), (h) and (j) are timed in turns with it (new, old, old, new); and
-      coo_to_levels is timed at (k), (l) and (l2). fused_imr's bound counts
-      a's value and output key and b's value only at the hits, and the
-      reduce kernels' bounds the values of the rows whose id is in range
-      only, in 32-byte sectors.
+      coo_to_levels is timed at (k), (l) and (l2). segment_reduce is held
+      and timed at the general entry's calls of (c), (e) and (k) (one
+      column), its [a*b, 1] mode's calls of (d), (m) and (o) (a lane of a
+      tile), and the general entry at the two shapes PR 17 timed it at,
+      rebuilt from (o)'s first tile and (d)'s product streams (2^28 rows
+      into 2^23 segments, 4,194,304 into 2^24), with scatter_workspace on
+      the same inputs beside them. fused_imr's bound counts a's value and
+      output key and b's value only at the hits, and the reduce kernels'
+      bounds the values of the rows whose id is in range only, in 32-byte
+      sectors.
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -387,7 +395,8 @@ def main() -> int:
     from repro_torch.kernels.fused_stream import (fused_imr_workspace,
                                                   fused_imr_workspace_plain)
     from repro_torch.kernels.scatter_workspace import scatter_workspace_plain
-    from repro_torch.kernels.segment_reduce import segment_reduce_plain
+    from repro_torch.kernels.segment_reduce import (
+        segment_reduce_mul, segment_reduce_mul_plain, segment_reduce_plain)
     from repro_torch.kernels.bsr_attention import (bsr_flash_attention,
                                                    bsr_flash_attention_plain)
     from repro_torch.kernels.coo_levels import (coo_to_levels,
@@ -424,6 +433,7 @@ def main() -> int:
     seen = {}
     wrappers = {scatter_workspace.__code__: "scatter_workspace",
                 segment_reduce.__code__: "segment_reduce",
+                segment_reduce_mul.__code__: "segment_reduce_mul",
                 spmm_bsr.__code__: "spmm_bsr",
                 sddmm_bsr.__code__: "sddmm_bsr",
                 bsr_flash_attention.__code__: "bsr_attention",
@@ -585,6 +595,15 @@ def main() -> int:
     log(f"[d] B nnz {Bs.nnz}, C nnz {Cs.nnz}, products {products}")
     spmspm_d = {"B": B, "C": C}           # (m) splits the same product
     want_d = (Bs @ Cs).toarray()
+    # (f) rebuilds the product stream PR 17 timed segment_reduce on
+    Bo = Bs.tocoo()
+    d_csr = {"b": [torch.as_tensor(a, device="cuda") for a in (
+                 Bo.row.astype(np.int64), Bo.col.astype(np.int64),
+                 Bo.data.astype(np.float32))],
+             "c": [torch.as_tensor(a, device="cuda") for a in (
+                 Cs.indptr.astype(np.int64), Cs.indices.astype(np.int64),
+                 Cs.data.astype(np.float32))]}
+    del Bo
     got_d = run_workload("d", "SpMSpM 4096 ikj",
                          expr_engine("X(i,j) = B(i,k) * C(k,j)",
                                      {"B": "cc", "C": "cc"}, ("i", "k", "j"),
@@ -732,10 +751,15 @@ def main() -> int:
         raise AssertionError(f"(o) engine {type(teng).__name__}")
     log(f"[o] refused untiled at {o_untiled} bytes; tiled {teng.tile_of}, "
         f"{teng.n_tiles} tiles of {teng.tile_bytes} estimated bytes")
+    if (teng.tile_of != {"i": 2, "k": 2} or teng.tile_bytes != 4104153287
+            or teng.pieces < 2 or teng.engine.par_n != teng.pieces):
+        raise AssertionError(f"(o) plan {teng.tile_of}, {teng.tile_bytes} "
+                             f"bytes a tile, {teng.pieces} pieces")
 
     def peak_call(label):
         """One tiled call: host ms, peak allocated bytes over it, and the
-        per-tile engine's plan misses and hits it added."""
+        per-tile engine's plan misses and hits and lane dispatches (one a
+        tile run in pieces) it added."""
         st0 = dict(teng.engine.stats)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -751,39 +775,55 @@ def main() -> int:
             raise AssertionError(f"(o) {label}: {after - base} bytes "
                                  f"outlive the call")
         return ms, peak, {k: teng.engine.stats[k] - st0[k]
-                          for k in ("plan_misses", "plan_hits")}
+                          for k in ("plan_misses", "plan_hits",
+                                    "lane_dispatches")}
 
     kops.reset_launch_counts()
     first_o, peak_first, st_first = peak_call("first call")
     warm_o, peak_warm, st_warm = peak_call("warm call")
     per_phase["o"] = kops.launch_counts()
-    if (st_first != {"plan_misses": 1, "plan_hits": 3}
-            or st_warm != {"plan_misses": 0, "plan_hits": 4}
+    # one plan for the four tiles, each run in pieces: one lane dispatch
+    # a tile
+    if (st_first != {"plan_misses": 1, "plan_hits": 3, "lane_dispatches": 4}
+            or st_warm != {"plan_misses": 0, "plan_hits": 4,
+                           "lane_dispatches": 4}
             or per_phase["o"]["segment_reduce"] < 1):
         raise AssertionError(f"(o) plan stats {st_first} then {st_warm}, "
                              f"launches {per_phase['o']}")
-    o_peak = max(peak_first, peak_warm)
+    caps_o = next(iter(teng.engine._plans.values())).caps
+    piece_cap = max(caps_o.values())
+    log(f"[o] each tile in L = {teng.pieces} pieces (lanes over "
+        f"{o_sch.loop_order[0]}); per-piece capacity {piece_cap} rows "
+        f"(caps {caps_o})")
     log(f"[o] equals the oracle exactly; first call {first_o:.1f} ms, warm "
         f"{warm_o:.1f} ms; plans {st_first} then {st_warm}; launches "
         f"{per_phase['o']}")
     log(f"[o] peak allocated {peak_first} bytes (first call), {peak_warm} "
-        f"(warm); tile_bytes {teng.tile_bytes}, budget {o_budget}, untiled "
-        f"estimate {o_untiled}")
-    if o_peak > o_budget:
-        # the port holds more than the reference's estimate models (int64
-        # keys, power-of-two capacities): a fault of the port, held to the
-        # untiled estimate instead
-        log(f"[o] FAULT: the peak exceeds the budget by {o_peak - o_budget} "
-            f"bytes ({o_peak / o_budget:.3f}x); held to the untiled "
-            f"estimate instead ({o_peak / o_untiled:.3f} of it)")
-        if o_peak >= o_untiled:
-            raise AssertionError(f"(o) peak {o_peak} reaches the untiled "
-                                 f"estimate {o_untiled}")
+        f"(warm), {max(peak_first, peak_warm) / piece_cap:.1f} bytes a row "
+        f"of the per-piece capacity; tile_bytes {teng.tile_bytes}, budget "
+        f"{o_budget}, untiled estimate {o_untiled}")
+    if peak_first > o_budget or peak_warm > o_budget:
+        raise AssertionError(f"(o) peak {peak_first} (first call), "
+                             f"{peak_warm} (warm) above the budget "
+                             f"{o_budget}")
+    o_peak = max(peak_first, peak_warm)
 
-    # (f) holds segment_reduce at the largest shape the tiles gave it
+    # (f) holds segment_reduce at the largest shape the pieces gave it, and
+    # rebuilds the first tile's product stream PR 17 timed it on
     record_kernel_inputs("o", lambda: teng(o_arrays))
-    seen["o"] = {k: [max(v, key=lambda kw: kw["vals"].numel())]
-                 for k, v in seen["o"].items() if k == "segment_reduce"}
+    seen["o"] = {k: [max(v, key=lambda kw: kw["keys"].numel())]
+                 for k, v in seen["o"].items() if k == "segment_reduce_mul"}
+    # (C's dense tile as a CSR whose every row holds all nj columns)
+    ti, tk = np.nonzero(o_arrays["B"][:n // 2, :n // 2])
+    o_tile = {"b": [torch.as_tensor(ti, device="cuda"),
+                    torch.as_tensor(tk, device="cuda"),
+                    torch.as_tensor(o_arrays["B"][ti, tk], device="cuda",
+                                    dtype=torch.float32)],
+              "c": [torch.arange(0, n // 2 * nj + 1, nj, device="cuda"),
+                    torch.arange(nj, device="cuda").repeat(n // 2),
+                    torch.as_tensor(o_arrays["C"][:n // 2], device="cuda",
+                                    dtype=torch.float32).reshape(-1)]}
+    del ti, tk
 
     import cProfile
     import pstats
@@ -803,6 +843,7 @@ def main() -> int:
         "result_nnz": int(np.count_nonzero(want_o)), "peak_bytes": o_peak,
         "peak_first_bytes": peak_first, "peak_warm_bytes": peak_warm,
         "tile_bytes": teng.tile_bytes, "budget": o_budget,
+        "pieces": teng.pieces, "piece_caps": caps_o,
         "untiled_estimate": o_untiled, "host_stages_ms": stages,
         "profile": prof_o, "stats": dict(teng.stats),
         "engine_stats": dict(teng.engine.stats)}
@@ -1206,71 +1247,130 @@ def main() -> int:
     # the reduce kernels skip a row whose id lies outside [0, slots) before
     # they read its values, so their bound counts every id, the values of
     # the live rows in the sectors that hold them, and the output once
-    for name in ("scatter_workspace", "segment_reduce"):
-        rows = []
-        launches = sum(per_phase[t][name] for t in "mnop") + main_counts[name]
-        for tag in ("c", "d", "d2", "e", "o"):
-            calls = seen.get(tag, {}).get(name, [])
-            if not calls:
-                continue
-            kw = calls[-1]
-            if name == "scatter_workspace":
-                ids, cols = kw["ids"], kw["cols"]
-                slots, mp = kw["num_slots"], kw["mul_pair"]
-                c_out = 2 if mp else cols.shape[1]
-                ids64 = ids.long().clamp(0, slots)
-                lib_cols = cols[:, :c_out].contiguous()
-                live = ((ids >= 0) & (ids < slots)).nonzero().squeeze(1)
-                rows.append(report(
-                    name, launches,
-                    lambda: scatter_workspace(ids, cols, num_slots=slots,
-                                              mul_pair=mp),
-                    lambda: scatter_workspace_plain(ids, cols,
-                                                    num_slots=slots,
-                                                    mul_pair=mp),
-                    lambda: torch.zeros((slots + 1, c_out), device="cuda"
-                                        ).index_add_(0, ids64, lib_cols),
-                    ids.numel() * ids.element_size()
-                    + sector_bytes(live, cols.shape[1] * 4)
-                    + slots * c_out * 4,
-                    live.numel() * c_out,
-                    f"({tag}) N={ids.numel()} live={live.numel()} "
-                    f"C={cols.shape[1]} slots={slots} mul_pair={mp}"))
-            else:
-                vals, sids = kw["vals"], kw["seg_ids"]
-                nseg = kw["num_segments"]
-                sids64 = sids.long().clamp(0, nseg)
-                live = ((sids >= 0) & (sids < nseg)).nonzero().squeeze(1)
-                rows.append(report(
-                    name, launches,
-                    lambda: segment_reduce(vals, sids, num_segments=nseg),
-                    lambda: segment_reduce_plain(vals, sids,
-                                                 num_segments=nseg),
-                    lambda: torch.zeros((nseg + 1, vals.shape[1]),
-                                        device="cuda"
-                                        ).index_add_(0, sids64, vals),
-                    sids.numel() * sids.element_size()
-                    + sector_bytes(live, vals.shape[1] * 4)
-                    + nseg * vals.shape[1] * 4,
-                    live.numel() * vals.shape[1],
-                    f"({tag}) N={vals.shape[0]} live={live.numel()} "
-                    f"D={vals.shape[1]} S={nseg}"))
-                if vals.shape[1] == 2:
-                    # a [value, 1] reduce over the key space: the workspace
-                    # kernel computes the same function on the same inputs,
-                    # the route the entries take up to 2^20 keys
-                    ws = scatter_workspace(sids, vals, num_slots=nseg)
-                    if not torch.equal(ws[:nseg], segment_reduce(
-                            vals, sids, num_segments=nseg)):
-                        raise AssertionError(f"({tag}) scatter_workspace "
-                                             "differs from segment_reduce")
-                    rows[-1]["workspace_route_ms"] = event_ms(
-                        lambda: scatter_workspace(sids, vals,
-                                                  num_slots=nseg))
-                    log(f"[f] segment_reduce at ({tag}): scatter_workspace "
-                        f"on the same inputs, equal, ms "
-                        f"{rows[-1]['workspace_route_ms']:.4f}")
-        kernels.append(max(rows, key=lambda r: r["bytes"]))
+    def reduce_launches(name):
+        return sum(per_phase[t][name] for t in "mnop") + main_counts[name]
+
+    def workspace_row(tag, ids, cols, slots, mp):
+        ids64 = ids.long().clamp(0, slots)
+        c_out = 2 if mp else cols.shape[1]
+        lib_cols = cols[:, :c_out].contiguous()
+        live = ((ids >= 0) & (ids < slots)).nonzero().squeeze(1)
+        return report(
+            "scatter_workspace", reduce_launches("scatter_workspace"),
+            lambda: scatter_workspace(ids, cols, num_slots=slots,
+                                      mul_pair=mp),
+            lambda: scatter_workspace_plain(ids, cols, num_slots=slots,
+                                            mul_pair=mp),
+            lambda: torch.zeros((slots + 1, c_out), device="cuda"
+                                ).index_add_(0, ids64, lib_cols),
+            ids.numel() * ids.element_size()
+            + sector_bytes(live, cols.shape[1] * 4) + slots * c_out * 4,
+            live.numel() * c_out,
+            f"({tag}) N={ids.numel()} live={live.numel()} "
+            f"C={cols.shape[1]} slots={slots} mul_pair={mp}")
+
+    def segment_row(tag, vals, sids, nseg):
+        """The general entry: (N, D) values by int32 id."""
+        sids64 = sids.long().clamp(0, nseg)
+        live = ((sids >= 0) & (sids < nseg)).nonzero().squeeze(1)
+        return report(
+            "segment_reduce", reduce_launches("segment_reduce"),
+            lambda: segment_reduce(vals, sids, num_segments=nseg),
+            lambda: segment_reduce_plain(vals, sids, num_segments=nseg),
+            lambda: torch.zeros((nseg + 1, vals.shape[1]), device="cuda",
+                                dtype=vals.dtype
+                                ).index_add_(0, sids64, vals),
+            sids.numel() * sids.element_size()
+            + sector_bytes(live, vals.shape[1] * vals.element_size())
+            + nseg * vals.shape[1] * vals.element_size(),
+            live.numel() * vals.shape[1],
+            f"({tag}) N={vals.shape[0]} live={live.numel()} "
+            f"D={vals.shape[1]} S={nseg}")
+
+    def segment_mul_row(tag, kw):
+        """The [a*b, 1] mode at the inputs the engine handed it. Its bound
+        counts every key and mask byte (the kernel reads both for every
+        row), a and b of the live rows in their sectors, and the output;
+        no single PyTorch call computes it (a product, a mask and a
+        scatter), so it has no library time."""
+        keys, a, b, valid = kw["keys"], kw["a"], kw["b"], kw["valid"]
+        nseg = kw["num_segments"]
+        live = (valid & (keys >= 0) & (keys < nseg)).nonzero().squeeze(1)
+        return report(
+            "segment_reduce", reduce_launches("segment_reduce"),
+            lambda: segment_reduce_mul(keys, a, b, valid, num_segments=nseg),
+            lambda: segment_reduce_mul_plain(keys, a, b, valid,
+                                             num_segments=nseg), None,
+            keys.numel() * 9 + sector_bytes(live, 4)
+            * (1 if b is None else 2) + nseg * 2 * 4,
+            live.numel() * (3 if b is not None else 2),
+            f"({tag}) [a*b, 1] mode N={keys.numel()} live={live.numel()} "
+            f"S={nseg}")
+
+    rows = []
+    for tag in ("c", "d", "d2", "e"):
+        for kw in seen.get(tag, {}).get("scatter_workspace", [])[-1:]:
+            rows.append(workspace_row(tag, kw["ids"], kw["cols"],
+                                      kw["num_slots"], kw["mul_pair"]))
+    kernels.append(max(rows, key=lambda r: r["bytes"]))
+
+    # segment_reduce on the main path: the general entry's D = 1 calls
+    # ((c)'s and (e)'s collapses, the sort-merge's inner sum in (k)) and
+    # the [a*b, 1] mode over a key space ((d), (m), each lane of (o)'s
+    # tiles); the kernels line carries the largest of those
+    rows = []
+    for tag in ("c", "e", "k"):
+        for kw in seen.get(tag, {}).get("segment_reduce", [])[-1:]:
+            rows.append(segment_row(tag, kw["vals"], kw["seg_ids"],
+                                    kw["num_segments"]))
+    for tag in ("d", "m", "o"):
+        for kw in seen.get(tag, {}).get("segment_reduce_mul", [])[-1:]:
+            rows.append(segment_mul_row(tag, kw))
+    kernels.append(max(rows, key=lambda r: r["bytes"]))
+
+    # the general entry at the two shapes PR 17 timed it at, rebuilt with
+    # the key structure its recorded inputs had: a [value, 1] stream whose
+    # live rows are a prefix in (i, k, j) order, the rest the dropped id S.
+    # (o): the first tile's 137M products (j-contiguous keys under each
+    # (i, k)) at a capacity of 2^28 into 2^23 segments; (d): 1.7M products
+    # at a capacity of 4,194,304 into 2^24
+    def product_stream(b_coo, c_csr, width, cap, nseg):
+        """The [b * c, 1] rows of the products B[i, k] * C[k, j] over C's
+        row k in (i, k, j) order, keys i * width + j, padded to ``cap``
+        rows of the dropped id ``nseg``. ``b_coo``: B's (i, k, value) in
+        row-major order; ``c_csr``: C's (indptr, indices, data)."""
+        ii, kk, bv = b_coo
+        indptr, indices, data = c_csr
+        cnt = indptr[kk + 1] - indptr[kk]
+        pos = (torch.repeat_interleave(indptr[kk] - torch.cumsum(cnt, 0)
+                                       + cnt, cnt)
+               + torch.arange(int(cnt.sum()), device="cuda"))
+        n_live = pos.numel()
+        sids = torch.full((cap,), nseg, dtype=torch.int32, device="cuda")
+        sids[:n_live] = (torch.repeat_interleave(ii, cnt) * width
+                         + indices[pos]).int()
+        vals = torch.zeros((cap, 2), device="cuda")
+        vals[:n_live, 0] = torch.repeat_interleave(bv, cnt) * data[pos]
+        vals[:n_live, 1] = 1.0
+        return vals, sids
+
+    pr17_shapes = (("o", o_tile["b"], o_tile["c"], nj, 1 << 28, 1 << 23),
+                   ("d", d_csr["b"], d_csr["c"], 4096, 1 << 22, 1 << 24))
+    for tag, b_coo, c_csr, width, cap, nseg in pr17_shapes:
+        vals, sids = product_stream(b_coo, c_csr, width, cap, nseg)
+        row = segment_row(f"{tag}, PR 17's shape", vals, sids, nseg)
+        # a [value, 1] reduce over the key space: the workspace kernel
+        # computes the same function on the same inputs
+        if not torch.equal(scatter_workspace(sids, vals, num_slots=nseg),
+                           segment_reduce(vals, sids, num_segments=nseg)):
+            raise AssertionError(f"({tag}) scatter_workspace differs from "
+                                 "segment_reduce")
+        row["workspace_route_ms"] = event_ms(
+            lambda: scatter_workspace(sids, vals, num_slots=nseg))
+        log(f"[f] segment_reduce at ({tag}, PR 17's shape): "
+            f"scatter_workspace on the same inputs, equal, ms "
+            f"{row['workspace_route_ms']:.4f}")
+        del vals, sids
 
     # fused_imr: its own phase through the intersect_mul_reduce entry
     na, nb, slots = 4 << 20, 1 << 20, 1 << 20

@@ -143,12 +143,16 @@ def scan_level(seg: torch.Tensor, crd: torch.Tensor,
                              out_int32=idx_t == I32)
     sid = sid.sub_(1).clamp_(min=0).clamp_(max=lengths.shape[0] - 1)
     valid = pos < torch.clamp(total, max=cap)
-    intra = starts[sid].neg_().add_(pos)          # pos - starts[sid]
+    # gathers by index_select: indexing with an int32 index would first
+    # copy it to int64, a stream-sized transient
+    intra = starts.index_select(0, sid).neg_().add_(pos)  # pos - starts[sid]
     del pos
-    ref = seg.to(idx_t)[pr.to(idx_t)[sid]].add_(intra)
+    ref = seg.to(idx_t).index_select(
+        0, pr.to(idx_t).index_select(0, sid)).add_(intra)
     del intra
     ref = ref.masked_fill_(~valid, 0)
-    out_crd = crd[ref.clamp(0, crd.shape[0] - 1)].masked_fill_(~valid, 0)
+    out_crd = crd.index_select(0, ref.clamp(0, crd.shape[0] - 1)
+                               ).masked_fill_(~valid, 0)
     return out_crd.to(I32), ref.to(I32), sid.to(I32), valid
 
 

@@ -69,7 +69,10 @@ tiles of the coordinate space stream one after another through ONE
 shared per-tile ``CompiledExpr`` (one plan for every tile), and their
 partial COOs merge on the host's running accumulator through
 ``coord_ops.accumulate_coo``, one keyed union reduce a tile on the
-device. ``schedule="auto"`` resolves through the port's copy of
+device. Under a budget each tile runs in pieces (``core/pieces.py``):
+lanes over its outermost loop variable, so the port's streams keep the
+budget the reference's estimate planned for. ``schedule="auto"`` resolves
+through the port's copy of
 ``autoschedule`` (its persistent schedule cache is the port's own file).
 
 Not ported yet: lanes spread over more than one GPU (``shard_lanes``),
@@ -86,7 +89,7 @@ import torch
 from ..kernels import ops as kops
 from . import coord_ops as co
 from . import graph as g
-from . import tiling
+from . import pieces, tiling
 from .bsr_bridge import BsrEngine, bsr_pattern
 from .custard import expr_cache_key, lower
 from .einsum import Assignment, Term, parse
@@ -179,7 +182,8 @@ class CanonStream:
                 base = torch.zeros_like(self.crd, dtype=torch.int64)
             else:
                 pk = self.parent.key()
-                base = pk[co._clip(self.parent_idx, 0, pk.shape[0] - 1)]
+                base = pk.index_select(
+                    0, co._clip(self.parent_idx, 0, pk.shape[0] - 1))
             k = base * self.dim + self.crd.to(torch.int64)
             self._key = torch.where(self.valid & (base != PAD), k, PAD)
         return self._key
@@ -302,6 +306,14 @@ class TorchBackend:
         self.mul_reduce_impl = mul_reduce
         self.caps_record: Dict[str, int] = {}      # eager: exact sizes used
         self.required: Dict[str, torch.Tensor] = {}  # static: device needs
+        # the lane's coordinate chunk: (var, first, past-the-end)
+        self._chunk: Optional[Tuple[str, int, int]] = None
+        if lane is not None:
+            for n in graph_.of_kind(g.LEVEL_SCAN):
+                if n.params.get("chunk_n"):
+                    v = n.params["var"]
+                    csz = -(-dims[v] // n.params["chunk_n"])
+                    self._chunk = (v, lane * csz, (lane + 1) * csz)
 
     # -- helpers -------------------------------------------------------
     def _ins(self, node):
@@ -335,16 +347,13 @@ class TorchBackend:
         crd, ref, sid, valid = co.scan_level(lv.seg, lv.crd, r.ref, r.valid,
                                              cap)
         ref_valid = valid
-        chunk_n = node.params.get("chunk_n")
-        if chunk_n and self.lane is not None:
+        if node.params.get("chunk_n") and self._chunk is not None:
             # split-level scanning: predicate this lane's REFERENCE stream
             # to its contiguous coordinate chunk. The crd/key stream stays
             # fully valid (sorted-key intersection and locate probes rely
             # on monotone keys), while the dead references zero the
             # out-of-chunk subtrees and collapse their fiber expansions
-            csz = -(-lv.dim // chunk_n)
-            lo = self.lane * csz
-            ref_valid = valid & (crd >= lo) & (crd < lo + csz)
+            ref_valid = valid & self._in_chunk(crd)
         cs = CanonStream(var=node.params["var"], crd=crd, parent_idx=sid,
                          valid=valid, dim=lv.dim, parent=r.stream)
         out = {"crd": cs, "ref": RefStream(cs, ref, ref_valid)}
@@ -397,6 +406,10 @@ class TorchBackend:
         return {"crd": cs, "ref": RefStream(cs, idx, found),
                 "ref_in": pref}
 
+    def _in_chunk(self, crd: torch.Tensor) -> torch.Tensor:
+        _, lo, hi = self._chunk
+        return (crd >= lo) & (crd < hi)
+
     def _repeat(self, node, ins):
         r: RefStream = ins["ref"]
         cs: CanonStream = ins["crd"]
@@ -404,8 +417,14 @@ class TorchBackend:
             ref = r.ref[0].expand(cs.crd.shape)
             ok = r.valid[0].expand(cs.crd.shape) & cs.valid
         else:
-            ref = r.ref[cs.parent_idx]
-            ok = r.valid[cs.parent_idx] & cs.valid
+            ref = r.ref.index_select(0, cs.parent_idx)
+            ok = r.valid.index_select(0, cs.parent_idx).logical_and_(
+                cs.valid)
+        if self._chunk is not None and cs.var == self._chunk[0]:
+            # a tensor repeated over the lane's variable: only the lane's
+            # chunk, so the fibers it scans below are the lane's alone
+            # (nothing outside the chunk can meet the chunked operand)
+            ok = ok & self._in_chunk(cs.crd)
         return {"ref": RefStream(cs, ref, ok)}
 
     def _array(self, node, ins):
@@ -415,8 +434,9 @@ class TorchBackend:
             vals = torch.zeros(r.ref.shape, dtype=torch.float32,
                                device=self.device)
             return {"val": ValStream(r.stream, vals, r.valid)}
-        idx = co._clip(r.ref, 0, t.vals.shape[0] - 1)
-        vals = torch.where(r.valid, t.vals[idx], 0.0)
+        vals = t.vals.index_select(
+            0, co._clip(r.ref, 0, t.vals.shape[0] - 1))
+        vals.masked_fill_(~r.valid, 0.0)
         return {"val": ValStream(r.stream, vals, r.valid)}
 
     def _alu(self, node, ins):
@@ -462,37 +482,44 @@ class TorchBackend:
         cs = v.stream
         chain = cs.ancestors()           # innermost first
         strides: List[Tuple[str, int]] = []
-        key: Optional[torch.Tensor] = None
+        mults: List[Optional[int]] = []  # a result level's key multiplier
         mult = 1
-        # each ancestor's row of every element; None is the innermost
-        # stream's own positions (no gather). The sums are built in place:
-        # the stream is a plan's largest allocation
-        idx: Optional[torch.Tensor] = None
-        valid = v.valid & cs.valid
         for s in chain:
             if s.var in self.result_vars:
-                c = s.crd if idx is None else s.crd[idx]
-                term = c.to(torch.int64, copy=idx is None).mul_(mult)
-                key = term if key is None else key.add_(term)
-                # unbound, the last gather and term would stay alive
-                # through the reduce, the plan's peak
-                del c, term
+                mults.append(mult)
                 strides.append((s.var, self.dims[s.var]))
                 mult *= self.dims[s.var]
-            valid &= s.valid if idx is None else s.valid[idx]
-            if s.parent is not None:
-                idx = s.parent_idx if idx is None else s.parent_idx[idx]
-        del idx                          # before the reduce, the peak
+            else:
+                mults.append(None)
+        strides.reverse()                # outer -> inner
+        # the key and validity of every level's elements, built outermost
+        # first: each level gathers its parent's by ``parent_idx`` and adds
+        # its own coordinate. Only the innermost level is stream-sized, so
+        # the stream sees one int64 gather and one mask, nothing more (the
+        # stream is a plan's largest allocation)
+        key: Optional[torch.Tensor] = None
+        valid: Optional[torch.Tensor] = None
+        for s, m in zip(reversed(chain), reversed(mults)):
+            if valid is None:
+                valid = s.valid.clone()
+            else:
+                key = (None if key is None
+                       else key.index_select(0, s.parent_idx))
+                valid = valid.index_select(0, s.parent_idx).logical_and_(
+                    s.valid)
+            if m is not None:
+                key = (s.crd.to(torch.int64).mul_(m) if key is None
+                       else key.add_(s.crd, alpha=m))
+        valid.logical_and_(v.valid)
         if key is None:
             key = torch.zeros(cs.size, dtype=torch.int64, device=self.device)
-        strides.reverse()                # outer -> inner
         if self.out_cap is None:
-            # the eager pass sizes its reduce for every live row, but
-            # records the distinct keys it found: a plan's result holds
-            # those, so a product stream's result does not cross to the
-            # host at the stream's capacity; a later call with more keys
-            # reports ``count > cap`` and regrows
-            cap = self._cap(int(torch.sum(valid)))
+            # the eager pass sizes its reduce for every live row (at most
+            # the key space), but records the distinct keys it found: a
+            # plan's result holds those, so a product stream's result does
+            # not cross to the host at the stream's capacity; a later call
+            # with more keys reports ``count > cap`` and regrows
+            cap = self._cap(min(int(torch.sum(valid)), mult))
         else:
             cap = self.out_cap
         if v.pair is not None and self.mul_reduce_impl is not None:
@@ -597,6 +624,11 @@ class TorchBackend:
 # ---------------------------------------------------------------------------
 # compiled engine
 # ---------------------------------------------------------------------------
+
+def _cat(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """``torch.cat``, without the copy of a single tensor."""
+    return tensors[0] if len(tensors) == 1 else torch.cat(tensors)
+
 
 def _bucket(n: int) -> int:
     """Capacity bucket: next power of two, floor 8. Bucketing keeps the
@@ -1029,10 +1061,11 @@ class CompiledExpr:
             # term/lane merge: ONE keyed union reduce combines every (term,
             # lane) partial result (sums commute; signs fold into the
             # values; disjoint lane outputs merge by concatenation for free)
-            keys = torch.cat([c.keys for c in outs])
-            vals = torch.cat([c.vals if s == 1 else s * c.vals
-                              for s, c in zip(signs, outs)])
-            valid = torch.cat([c.valid for c in outs])
+            keys = _cat([c.keys for c in outs])
+            vals = _cat([c.vals if s == 1 else s * c.vals
+                         for s, c in zip(signs, outs)])
+            valid = _cat([c.valid for c in outs])
+            del outs
             uk, uv, uvalid, count = union_reduce(
                 keys, vals, valid, caps["fused"], self._segsum,
                 key_bound=bound)
@@ -1320,6 +1353,14 @@ class TiledExpr:
     partials are disjoint (concat-merge). The running result lives on the
     host; one tile's working set is on the device at a time.
 
+    Under a budget, each tile runs in ``pieces`` (``core/pieces.py``): the
+    tile's schedule with its outermost loop variable parallelized into
+    that many lanes, which the engine runs one after another on its one
+    plan, so the port's streams (more bytes an element than the
+    reference's estimate counts) keep the budget the plan was made for.
+    The plan (``tile_of``, ``n_tiles``, ``tile_bytes``) stays the
+    reference's.
+
     Built by ``compile_expr`` whenever the schedule carries ``tile`` or a
     ``mem_budget`` forces one; quacks like ``CompiledExpr`` for the
     serving paths (``__call__``/``execute``/``execute_batch``/
@@ -1357,11 +1398,18 @@ class TiledExpr:
                 f"~{tiling.format_bytes(self.tile_bytes)} > budget "
                 f"{tiling.format_bytes(self.mem_budget)}; tile finer",
                 estimate=self.tile_bytes, budget=self.mem_budget)
+        # each tile runs in as many pieces (lanes over its outermost loop
+        # variable) as the port's bytes a stream element need to keep the
+        # budget; decided here, before any tile reaches the device
+        self.pieces = pieces.tile_pieces(self.assign, fmt, inner,
+                                         self.inner_dims, self.mem_budget,
+                                         densities=densities)
         # ONE engine for every tile: identical expression/format/schedule/
         # extents/device => the process-wide cached CompiledExpr, whose
         # plan cache all tiles share
-        self.engine = compile_expr(self.assign, fmt, inner, self.inner_dims,
-                                   use_kernels=use_kernels,
+        self.engine = compile_expr(self.assign, fmt,
+                                   pieces.piece_schedule(inner, self.pieces),
+                                   self.inner_dims, use_kernels=use_kernels,
                                    device=self.device,
                                    shard_lanes=shard_lanes)
         # the tile merge: the same dispatch entry as the engine's
@@ -1389,7 +1437,8 @@ class TiledExpr:
 
     @property
     def par_n(self) -> int:
-        return self.engine.par_n
+        """The schedule's lanes (a tile's pieces are not among them)."""
+        return 1 if self.pieces > 1 else self.engine.par_n
 
     # -- execution -------------------------------------------------------
     def _global_keys(self, coords: np.ndarray,

@@ -35,6 +35,8 @@ _SIGNATURES = {
     "sam_scatter_workspace_f64": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "sam_segment_reduce_f32": [_P, _P, _P, _LL, _I, _I, _P],
     "sam_segment_reduce_f64": [_P, _P, _P, _LL, _I, _I, _P],
+    "sam_segment_reduce_mul_f32": [_P, _P, _P, _P, _P, _LL, _I, _P],
+    "sam_segment_reduce_mul_f64": [_P, _P, _P, _P, _P, _LL, _I, _P],
     "sam_fused_imr_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
     "sam_fused_imr_f64": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
     "sam_spmm_bsr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],

@@ -10,13 +10,15 @@ compiled engine resolves its hot primitives here:
   keyed_union_reduce   — the keyed merge of multi-term results; on the GPU
       the ``scatter_workspace`` kernel for a declared key bound up to
       ``DENSE_REDUCE_BOUND``; up to ``SEGMENT_DENSE_BOUND`` the
-      ``segment_reduce`` kernel over the key space itself (a dense
-      workspace of ``key_bound`` rows, no sort); beyond it the reference's
-      sort-merge with ``segment_reduce`` as its inner sum.
+      ``segment_reduce`` kernel's [a*b, 1] mode over the key space itself
+      (a dense workspace of ``key_bound`` rows, no sort, nothing staged);
+      beyond it the reference's sort-merge with ``segment_reduce`` as its
+      inner sum.
   mul_reduce           — a mul-ALU product folded into the final keyed
-      reduce; on the GPU ``scatter_workspace`` in ``mul_pair`` mode (the
-      product is formed inside the kernel), or ``segment_reduce`` over the
-      key space, or the sort-merge, by key bound as above.
+      reduce; on the GPU ``scatter_workspace`` in ``mul_pair`` mode, or
+      ``segment_reduce``'s [a*b, 1] mode over the key space (the product
+      is formed inside either kernel), or the sort-merge, by key bound as
+      above.
   intersect_mul_reduce — the whole Gustavson inner loop; on the GPU the
       ``fused_stream`` kernel. The engine does not resolve it (neither
       does the reference's).
@@ -52,7 +54,7 @@ from .coo_levels import coo_to_levels
 from .fused_stream import fused_imr_workspace
 from .scatter_workspace import scatter_workspace
 from .sddmm_bsr import sddmm_bsr
-from .segment_reduce import segment_reduce
+from .segment_reduce import segment_reduce, segment_reduce_mul
 from .spmm_bsr import spmm_bsr
 
 _COUNTED = {"scatter_workspace": scatter_workspace,
@@ -71,9 +73,9 @@ def _keyed_segment_sum_cuda(vals, seg_ids, num_segments: int):
 
 
 # Beyond the workspace kernel's bound, a key space up to this many slots
-# still reduces densely on the card: ``segment_reduce`` sums [value, 1]
-# rows straight into a (key_bound, 2) workspace of [sums, hits] (at most
-# 256 MiB in float32). The sort-merge it replaces sorts a plan's whole
+# still reduces densely on the card: ``segment_reduce``'s [a*b, 1] mode
+# sums [value, 1] rows straight into a (key_bound, 2) workspace of
+# [sums, hits] (at most 256 MiB in float32). The sort-merge it replaces sorts a plan's whole
 # capacity, and a sort holds about 46 bytes a row on the card (keys,
 # sorted keys, permutation and the sort's own buffers), the largest
 # allocation of a tile. ``segment_reduce`` rather than a wider
@@ -90,25 +92,24 @@ def _segment_dense(key_bound) -> bool:
     return key_bound is not None and int(key_bound) <= SEGMENT_DENSE_BOUND
 
 
+def _workspace_ids(keys, valid, nseg: int):
+    """``scatter_workspace``'s int32 slot of each row, the dropped slot
+    ``nseg`` where the row is masked (built in place: a stream-sized int32
+    array and a mask's negation, nothing wider)."""
+    return keys.to(torch.int32).masked_fill_(~valid, nseg)
+
+
 def _segment_workspace(keys, valid, cap: int, key_bound, a_vals,
                        b_vals=None):
     """A keyed reduce over a bounded key space in one ``segment_reduce``
-    launch: each live row adds [value, 1] into its key's row of a dense
-    workspace, which compacts like ``scatter_workspace``'s (a live key with
-    sum 0 keeps its slot). The value is ``a_vals``, or ``a_vals * b_vals``
-    formed straight into the workspace's input. Masked rows get the
-    dropped id, so the kernel never reads their (possibly garbage)
-    values."""
-    nseg = max(int(key_bound), 1)
-    acc = _build.acc_dtype(a_vals.dtype, "keyed_union_reduce")
-    cols = torch.empty((valid.shape[0], 2), dtype=acc, device=valid.device)
-    if b_vals is None:
-        cols[:, 0] = a_vals
-    else:
-        torch.mul(a_vals, b_vals, out=cols[:, 0])
-    cols[:, 1] = valid
-    ids = keys.to(torch.int32, copy=True).masked_fill_(~valid, nseg)
-    ws = segment_reduce(cols, ids, num_segments=nseg)
+    launch in its [a*b, 1] mode: each valid row adds [value, 1] into its
+    key's row of a dense workspace, which compacts like
+    ``scatter_workspace``'s (a live key with sum 0 keeps its slot). The
+    value is ``a_vals``, or ``a_vals * b_vals`` formed inside the kernel.
+    The kernel reads the keys, values and mask as they are and skips a
+    masked row before its (possibly garbage) values: nothing is staged."""
+    ws = segment_reduce_mul(keys, a_vals, b_vals, valid,
+                            num_segments=max(int(key_bound), 1))
     return _co.dense_workspace_result(ws[:, 0], ws[:, 1], cap)
 
 
@@ -128,9 +129,10 @@ def _keyed_union_reduce_cuda(keys, vals, valid, cap: int,
                                       key_bound=key_bound)
     nseg = max(int(key_bound), 1)
     acc = _build.acc_dtype(vals.dtype, "keyed_union_reduce")
-    ids = torch.where(valid, keys, nseg).to(torch.int32)
-    v0 = torch.where(valid, vals.to(acc), 0.0)
-    ws = scatter_workspace(ids, torch.stack([v0, valid.to(acc)], dim=1),
+    cols = torch.empty((valid.shape[0], 2), dtype=acc, device=valid.device)
+    cols[:, 0] = vals
+    cols[:, 1] = valid
+    ws = scatter_workspace(_workspace_ids(keys, valid, nseg), cols,
                            num_slots=nseg)
     return _co.dense_workspace_result(ws[:, 0], ws[:, 1], cap)
 
@@ -152,10 +154,12 @@ def _mul_reduce_cuda(keys, a_vals, b_vals, valid, cap: int, *,
                               segment_sum_impl=_keyed_segment_sum_cuda)
     nseg = max(int(key_bound), 1)
     acc = _build.acc_dtype(a_vals.dtype, "mul_reduce")
-    ids = torch.where(valid, keys, nseg).to(torch.int32)
-    cols = torch.stack([a_vals.to(acc), b_vals.to(acc), valid.to(acc)],
-                       dim=1)
-    ws = scatter_workspace(ids, cols, num_slots=nseg, mul_pair=True)
+    cols = torch.empty((valid.shape[0], 3), dtype=acc, device=valid.device)
+    cols[:, 0] = a_vals
+    cols[:, 1] = b_vals
+    cols[:, 2] = valid
+    ws = scatter_workspace(_workspace_ids(keys, valid, nseg), cols,
+                           num_slots=nseg, mul_pair=True)
     return _co.dense_workspace_result(ws[:, 0], ws[:, 1], cap)
 
 

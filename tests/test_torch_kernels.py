@@ -27,7 +27,7 @@ from repro_torch.kernels.fused_stream import (  # noqa: E402
     fused_imr_workspace, fused_imr_workspace_plain)
 from repro_torch.kernels.scatter_workspace import scatter_workspace  # noqa: E402
 from repro_torch.kernels.segment_reduce import (  # noqa: E402
-    segment_reduce, segment_reduce_plain)
+    segment_reduce, segment_reduce_mul, segment_reduce_plain)
 
 I32_MAX = np.iinfo(np.int32).max
 
@@ -133,6 +133,34 @@ def test_segment_reduce_float64_keeps_precision():
     vals = torch.tensor([[1.0], [1e-12], [3.0]], dtype=torch.float64)
     out = segment_reduce(vals, torch.tensor([0, 0, 1]), num_segments=2)
     assert out.dtype == torch.float64 and out[0, 0] == 1.0 + 1e-12
+
+
+MUL_CASES = [(1, 1, True), (700, 9, True), (2049, 37, False)]  # (n, s, b)
+
+
+@pytest.mark.parametrize("n,s,with_b", MUL_CASES)
+def test_segment_reduce_mul_plain_equals_pallas(n, s, with_b):
+    """The [a*b, 1] mode's plain version against the reference kernel
+    (interpret mode) on the [a*b, 1] rows numpy forms from the same
+    streams: masked rows carry inf/nan garbage in a and b, and keys
+    outside [0, S) add nothing."""
+    rng = np.random.default_rng(n + s)
+    keys = rng.integers(-2, s + 3, n).astype(np.int64)
+    valid = rng.random(n) < 0.7
+    a = rng.integers(-4, 5, n).astype(np.float32)
+    b = rng.integers(-4, 5, n).astype(np.float32)
+    a[~valid] = np.nan
+    b[~valid] = np.inf
+    live = valid & (keys >= 0) & (keys < s)
+    with np.errstate(invalid="ignore"):
+        prod = np.where(live, a * b if with_b else a, 0.0)
+    rows = np.stack([prod, live], 1).astype(np.float32)
+    ids = np.where(live, keys, s).astype(np.int32)
+    ref = r_seg(jnp.asarray(rows), jnp.asarray(ids), num_segments=s,
+                interpret=True)
+    got = segment_reduce_mul(t(keys), t(a), t(b) if with_b else None,
+                             t(valid), num_segments=s)
+    same(ref, got, "segment_reduce_mul")
 
 
 def test_kernels_refuse_integer_payloads():

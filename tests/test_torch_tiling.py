@@ -15,7 +15,8 @@
   only fitting schedules, and a program under a budget tiles its unfused
   stages.
 * The reference ``TiledExpr`` on three cases returns what the port's
-  returns (each reference compile costs seconds, so only three).
+  returns (each reference compile costs seconds, so only three), and on
+  a budget whose tiles the port runs in pieces.
 * The copy's tiled simulation (``simulator._simulate_tiled``) gives the
   reference's cycles, dense results and tile counts, with 1 and 2
   workers.
@@ -536,6 +537,30 @@ def test_tiled_engine_equals_reference_tiled_expr(tile):
     assert out.mode_order == rout.mode_order
     assert got._hints == want._hints
     assert got.stats == want.stats
+
+
+def test_tiled_pieces_equal_reference_tiled_expr():
+    """Under a budget, the port runs each tile of the reference's plan in
+    pieces (lanes over the outermost loop variable): the plan's
+    ``tile_of``, ``n_tiles`` and ``tile_bytes`` stay the reference's, and
+    the result equals the reference ``TiledExpr``'s bit for bit."""
+    arrays = _ops(seed=17)
+    dens = {"B": 0.3, "C": 0.3}
+    budget = tiling.estimate_call_bytes(EXPR, FMT, IKJ, DIMS,
+                                        densities=dens) // 5
+    got = compile_cpu(EXPR, FMT, IKJ, DIMS, mem_budget=budget, sparsity=dens)
+    want = rjb.compile_expr(EXPR, RFormat({"B": "cc", "C": "cc"}),
+                            RSchedule(loop_order=("i", "k", "j")), DIMS,
+                            mem_budget=budget, sparsity=dens)
+    assert got.pieces > 1
+    assert ((got.tile_of, got.n_tiles, got.tile_bytes)
+            == (want.tile_of, want.n_tiles, want.tile_bytes))
+    lanes0 = got.engine.stats["lane_dispatches"]
+    out, rout = got(arrays), want(arrays)
+    assert got.engine.stats["lane_dispatches"] - lanes0 == got.n_tiles
+    np.testing.assert_array_equal(out.to_dense(), rout.to_dense())
+    np.testing.assert_array_equal(out.to_dense(), arrays["B"] @ arrays["C"])
+    assert out.mode_order == rout.mode_order
 
 
 # ---------------------------------------------------------------------------

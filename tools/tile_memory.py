@@ -6,15 +6,19 @@ Usage (on a machine with a CUDA GPU):
     python3 tools/tile_memory.py [--src DIR] [--n 16384] [--nj 1024]
 
 Builds (o)'s operands (B n x n at 0.2% in ``cc``, C n x nj dense in ``dd``,
-order ikj, values 1-8 from a fixed seed), takes the first tile of its
-``{i: 2, k: 2}`` grid (B[:n/2, :n/2], C[:n/2, :]) and runs it through
-``compile_expr`` untiled at the tile's extents, as ``TiledExpr`` runs
-every tile. One warm call is timed on the host clock; another is measured
-with ``torch.cuda.max_memory_allocated`` and traced with the allocator's
-history. The lines printed are the warm time, the peak, the bytes a row
-of the largest stream capacity of the plan, and the bytes live at the
-peak grouped by the first ``repro_torch`` frame that allocated them. ``--src`` points at another checkout's ``src`` directory, so
-two trees can be compared in one call (the CUDA sources build per tree).
+order ikj, values 1-8 from a fixed seed) and its ``TiledExpr`` under
+``mem_budget="4GB"`` (the plan ``{i: 2, k: 2}``), takes the first tile of
+the grid (B[:n/2, :n/2], C[:n/2, :]) and runs it through the tiled
+engine's per-tile engine as ``TiledExpr`` runs every tile: in its pieces
+(lanes over the outermost loop variable), on the shared input buckets.
+One warm call is timed on the host clock; another is measured with
+``torch.cuda.max_memory_allocated`` and traced with the allocator's
+history. The lines printed are the pieces, the warm time, the peak, the
+bytes a row of the largest stream capacity of the plan (one piece's), and
+the bytes live at the peak grouped by the first ``repro_torch`` frame that
+allocated them. ``--src`` points at another checkout's ``src`` directory,
+so two trees can be compared in one call (the CUDA sources build per
+tree; a tree without pieces runs the tile whole).
 """
 from __future__ import annotations
 
@@ -51,33 +55,38 @@ def main() -> int:
     B[flat] = rng.integers(1, 9, flat.size)
     B = B.reshape(n, n)
     C = rng.integers(1, 9, (n, nj)).astype(float)
+    teng = compile_expr("X(i,j) = B(i,k) * C(k,j)",
+                        Format({"B": "cc", "C": "dd"}),
+                        Schedule(loop_order=("i", "k", "j")),
+                        {"i": n, "j": nj, "k": n}, mem_budget="4GB",
+                        sparsity={"B": 0.002, "C": 1.0})
+    teng._measure_hints({"B": B, "C": C})        # every tile's buckets
+    eng, hints = teng.engine, teng._hints
     tile = {"B": B[:h, :h], "C": C[:h]}
-    eng = compile_expr("X(i,j) = B(i,k) * C(k,j)",
-                       Format({"B": "cc", "C": "dd"}),
-                       Schedule(loop_order=("i", "k", "j")),
-                       {"i": h, "j": nj, "k": h})
-    coords, vals = eng.execute_coo(tile)              # records the plan
+    coords, vals = eng.execute_coo(tile, hints=hints)   # records the plan
     got = np.zeros((h, nj))
     got[coords[:, 0], coords[:, 1]] = vals
     if not np.array_equal(got, sp.csr_matrix(tile["B"]) @ tile["C"]):
         raise AssertionError("the tile differs from scipy's product")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.execute_coo(tile)
+    eng.execute_coo(tile, hints=hints)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.memory._record_memory_history(max_entries=200000)
-    eng.execute_coo(tile)
+    eng.execute_coo(tile, hints=hints)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     snap = torch.cuda.memory._snapshot()
     torch.cuda.memory._record_memory_history(enabled=None)
     caps = next(iter(eng._plans.values())).caps
     big = max(caps.values())
-    print(f"tile {h} x {h} x {nj} ({args.src}): warm call {warm_ms:.1f} ms; "
-          f"peak allocated {peak} bytes, {peak / big:.1f} bytes a row of "
-          f"the largest capacity {big}; caps {caps}")
+    print(f"tile {h} x {h} x {nj} ({args.src}): "
+          f"{getattr(teng, 'pieces', 1)} pieces, tile_bytes "
+          f"{teng.tile_bytes}; warm call {warm_ms:.1f} ms; peak allocated "
+          f"{peak} bytes, {peak / big:.1f} bytes a row of the largest "
+          f"capacity {big}; caps {caps}")
 
     def site(frames):
         for f in frames:
