@@ -97,12 +97,38 @@ Phases:
       output key and b's value only at the hits, and the reduce kernels'
       bounds the values of the rows whose id is in range only, in 32-byte
       sectors.
+  (q) after (f), last: serving (core.serving.SamServer, threaded,
+      max_batch=8): four submitter threads at once, each 16 requests of
+      (d2)'s product (a density each, uniform in [0.005, 0.02], a seed each)
+      and 4 of (e)'s Plus3, with a b-format SpMM at (g)'s shape and the
+      fused GAT program at (k)'s shape on the same server: every result
+      equal to its float64 oracle, the 64 (d2) results equal to the same
+      engine's execute_batch bit for bit, submitted == completed, no failed
+      or rejected request, four sam-serve-* threads while it runs;
+      requests/s, latency percentiles, the card's idle share over one served
+      burst and a sequential loop (execute one (d2) request at a time on a
+      fresh engine) are printed; then (o) under a 4 GB budget is refused
+      with reason "over-budget" (admission="reject") and served tiled once
+      (admission="tile"), equal to (o)'s oracle, its peak above what was
+      live before it within the budget;
+  (r) distributed tiles: (o)'s TiledExpr through DistTiledExpr with two
+      workers, overlap on, tile 1 failing on its first attempt: 4 tiles, a
+      retry, the result bit-identical to (o)'s TiledExpr and equal to the
+      oracle, peak (above what was live) within the budget on the first and
+      the warm call; then ``python -m repro_torch.launch.serve --sam ...
+      --mem-budget B --workers 2`` in a subprocess, B a third of the
+      request's untiled estimate, must exit 0 and print its OUT-OF-CORE and
+      DISTRIBUTED lines;
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
 (m), (n), (o) and (p) and read after each: segment_reduce must have
 launched in (m) and (o) and scatter_workspace in (n) (the two reduce
-kernels' launches in the kernels line are those of (b)-(e) and (m)-(p)). They are zeroed again
+kernels' launches in the kernels line are those of (b)-(e) and (m)-(r)).
+They are zeroed before (q) and read after it: scatter_workspace,
+segment_reduce, spmm_bsr and coo_to_levels must have launched there (their
+serving launches are added to the kernels line's); and before (r):
+segment_reduce must have launched. They are zeroed again
 before each of (g)-(j) and read after it: its kernel must have launched there,
 (g)-(i) must report block size 128 and no fallback call, and spmm_bsr,
 sddmm_bsr and bsr_attention must have launched only their tensor-core
@@ -377,7 +403,13 @@ def profiled_device_ms(fn, match, reps=20, per_call=1):
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    # a fatal signal (a crash in native code, on any thread) prints every
+    # thread's Python stack
+    faulthandler.enable(all_threads=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -923,7 +955,7 @@ def main() -> int:
         "simulated": res.report.simulated, "first_ms": p_ms,
         "warm_ms": p_warm}
     log(f"[p] launches {per_phase['p']}")
-    del o_arrays, want_o, teng, po, peng, spmspm_d, want_d
+    del peng, po
 
     # -- (g)-(j) the block-sparse path at llama3.2-3b-bsr's widths ------------
     # d_model 3072, d_ff 8192, 24 heads of 128, window 4096 tokens
@@ -1695,6 +1727,312 @@ def main() -> int:
         if tag == "k":
             kernels.append(row)
     del keys_l, valid_l, keys_l2, valid_l2
+
+    # -- (q) serving, threaded, on the card ---------------------------------
+    # last of the paths, after (f): a torch.profiler session that spans
+    # the server's threads leaves later sessions missing device events
+    seen.clear()                     # (f)'s copies of the kernels' inputs
+    # four submitter threads at once, each 16 requests of (d2)'s product (a
+    # density each, uniform in [0.005, 0.02], a seed each) and 4 of (e)'s
+    # Plus3, plus a b-format SpMM at (g)'s shape and the fused GAT program at
+    # (k)'s shape on the same server; every result equals its float64 oracle
+    import threading
+
+    from repro_torch.core.serving import AdmissionError, Request, SamServer
+
+    n = 1024
+    mm_expr = "X(i,j) = B(i,k) * C(k,j)"
+    mm_fmt = {"B": "cc", "C": "cc"}
+    p3_expr = "X(i,j) = B(i,j) + C(i,j) + D(i,j)"
+    p3_fmt = {"B": "cc", "C": "cc", "D": "cc"}
+    q_jobs = []                     # per thread: [(kind, arrays, want)]
+    for t in range(4):
+        rt = np.random.default_rng(SEED + 300 + t)
+        jobs = []
+        for r in range(16):
+            rs = np.random.default_rng(SEED + 400 + 16 * t + r)
+            dens = float(rt.uniform(0.005, 0.02))
+            arrays = {m: sparse_int(rs, (n, n), dens) for m in "BC"}
+            jobs.append(("d2", arrays, (sp.csr_matrix(arrays["B"])
+                                        @ sp.csr_matrix(arrays["C"]))
+                         .toarray()))
+        for r in range(4):
+            rs = np.random.default_rng(SEED + 500 + 4 * t + r)
+            arrays = {m: sparse_int(rs, (n, n), 0.05) for m in "BCD"}
+            jobs.append(("e", arrays,
+                         arrays["B"] + arrays["C"] + arrays["D"]))
+        q_jobs.append([jobs[i] for i in rt.permutation(len(jobs))])
+    d2_sets = [a for jobs in q_jobs for k, a, _ in jobs if k == "d2"]
+    # (g)'s shape and (k)'s, their operands drawn here
+    rq = np.random.default_rng(SEED + 600)
+    bs, d_model, d_ff, tokens = 128, 3072, 8192, 4096
+    nbr, nbc = d_ff // bs, d_model // bs
+    keep = np.zeros(nbr * nbc, bool)
+    keep[rq.choice(nbr * nbc, nbr * nbc // 4, replace=False)] = True
+    q_w1t = (np.kron(keep.reshape(nbr, nbc), np.ones((bs, bs), np.int8))
+             * rq.integers(-3, 4, (d_ff, d_model), dtype=np.int8)
+             ).astype(np.float32)
+    q_xt = rq.integers(-3, 4, (d_model, tokens)).astype(np.float32)
+    q_spmm_want = q_w1t.astype(np.float64) @ q_xt.astype(np.float64)
+    n_nodes, deg, feat = 16384, 14, 128
+    src = np.repeat(np.arange(n_nodes), deg)
+    dst = np.concatenate([rq.choice(n_nodes, deg, replace=False)
+                          for _ in range(n_nodes)])
+    edge = rq.integers(1, 4, src.size) * rq.choice([-1, 1], src.size)
+    adj = np.zeros((n_nodes, n_nodes))
+    adj[src, dst] = edge
+    feats = {t: rq.integers(-3, 4, (n_nodes, feat)).astype(float)
+             for t in "CDE"}
+    q_gat = {"B": adj, **feats}
+    q_gat_want = sp.csr_matrix(
+        (edge * np.einsum("ef,ef->e", feats["C"][src], feats["D"][dst]),
+         (src, dst)), shape=(n_nodes, n_nodes)) @ feats["E"]
+    del adj, src, dst, edge, feats
+    nnz_b = [np.count_nonzero(a["B"]) for a in d2_sets]
+    log(f"[q] 4 threads x (16 of (d2), {min(nnz_b)}-{max(nnz_b)} nonzeros "
+        f"in B, and 4 of (e)); a b-format SpMM at (g)'s shape and the GAT "
+        f"program at (k)'s")
+
+    kops.reset_launch_counts()
+    srv = SamServer(max_batch=8)
+    q_results = {}
+    q_errors = []
+    start = threading.Barrier(5)
+
+    def submitter(ti):
+        try:
+            start.wait(timeout=600)
+            hs = [srv.submit(Request(mm_expr if kind == "d2" else p3_expr,
+                                     arrays, formats=mm_fmt if kind == "d2"
+                                     else p3_fmt,
+                                     order="ikj" if kind == "d2" else "ij"))
+                  for kind, arrays, _ in q_jobs[ti]]
+            q_results[ti] = [h.result(timeout=600) for h in hs]
+        except Exception as exc:  # noqa: BLE001 — fails the phase below
+            q_errors.append(exc)
+
+    threads = [threading.Thread(target=submitter, args=(ti,))
+               for ti in range(4)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    start.wait(timeout=600)
+    h_spmm = srv.submit(Request(
+        "x(i,k) = B(i,j) * C(j,k)", {"B": q_w1t, "C": q_xt},
+        formats={"B": "bb", "C": "dd", "x": "dd"}, order="ijk"))
+    h_gat = srv.submit(Request(
+        GAT, q_gat, formats=GAT_FMT,
+        schedule={k: Schedule(loop_order=o) for k, o in GAT_ORDER.items()},
+        dims={"i": n_nodes, "j": n_nodes, "f": feat, "g": feat}))
+    pipeline = sorted(th.name for th in threading.enumerate()
+                      if th.name.startswith("sam-serve-") and th.is_alive())
+    for th in threads:
+        th.join(timeout=900)
+    srv.drain(timeout=900)
+    q_wall = time.perf_counter() - t0
+    st_q = srv.stats()
+    if q_errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"(q) submitter failed: {q_errors[:1]}")
+    if pipeline != ["sam-serve-batcher", "sam-serve-decode",
+                    "sam-serve-dispatch", "sam-serve-encode"]:
+        raise AssertionError(f"(q) pipeline threads {pipeline}")
+    if (st_q["submitted"] != 82 or st_q["completed"] != 82
+            or st_q["failed"] or st_q["rejected"]):
+        raise AssertionError(f"(q) stats {st_q}")
+    for ti, jobs in enumerate(q_jobs):
+        for (kind, _, want), got in zip(jobs, q_results[ti]):
+            check_equal(f"(q) {kind} request", tree_to_dense(got), want)
+    check_equal("(q) b-format SpMM", tree_to_dense(h_spmm.result(timeout=60)),
+                q_spmm_want)
+    check_equal("(q) GAT program",
+                tree_to_dense(h_gat.result(timeout=60)["A"]), q_gat_want)
+    del q_spmm_want, q_gat_want
+    per_phase["q"] = kops.launch_counts()
+    # the (d2) results against the same engine's execute_batch, bit for bit
+    d2_eng = expr_engine(mm_expr, mm_fmt, ("i", "k", "j"),
+                         {"i": n, "j": n, "k": n})
+    for ti, jobs in enumerate(q_jobs):
+        members = [(a, got) for (kind, a, _), got in zip(jobs, q_results[ti])
+                   if kind == "d2"]
+        for (a, got), ref in zip(members, d2_eng.execute_batch(
+                [a for a, _ in members])):
+            if not all(np.array_equal(x, y) for x, y in (
+                    (got.vals, ref.vals),
+                    *((lg.crd, lr.crd) for lg, lr in
+                      zip(got.levels, ref.levels)))):
+                raise AssertionError("(q) a served (d2) result differs "
+                                     "from execute_batch")
+    for name in ("scatter_workspace", "segment_reduce", "spmm_bsr",
+                 "coo_to_levels"):
+        if per_phase["q"][name] < 1:
+            raise AssertionError(f"(q) {name} never launched: "
+                                 f"{per_phase['q']}")
+    log(f"[q] 82 requests served in {q_wall * 1e3:.1f} ms, every result "
+        f"equal to its oracle, the (d2) results to execute_batch bit for "
+        f"bit; pipeline threads while it ran {pipeline}; launches "
+        f"{per_phase['q']}")
+    log(f"[q] stats: {st_q['requests_per_sec']:.3f} requests/s, p50_ms "
+        f"{st_q['p50_ms']:.1f}, p99_ms {st_q['p99_ms']:.1f}, service p50/p99 "
+        f"{st_q['service_p50_ms']:.1f}/{st_q['service_p99_ms']:.1f} ms, "
+        f"queue wait p50/p99 {st_q['queue_wait_p50_ms']:.1f}/"
+        f"{st_q['queue_wait_p99_ms']:.1f} ms, dispatches "
+        f"{st_q['dispatches']}, occupancy {st_q['batch_occupancy']:.3f}, "
+        f"max batch {st_q['max_batch_seen']}")
+    srv.shutdown()
+
+    def burst():
+        """One served burst: the 64 (d2) operand sets and the 16 Plus3
+        ones submitted at once, drained."""
+        with SamServer(max_batch=8) as s:
+            hs = s.submit_many(
+                [Request(mm_expr if kind == "d2" else p3_expr, arrays,
+                         formats=mm_fmt if kind == "d2" else p3_fmt,
+                         order="ikj" if kind == "d2" else "ij")
+                 for jobs in q_jobs for kind, arrays, _ in jobs])
+            s.drain(timeout=900)
+            bad = [h for h in hs if h.exception(timeout=60) is not None]
+            if bad:
+                raise AssertionError(f"(q) burst: {bad[0].exception()}")
+            return s.stats()
+
+    st_burst = burst()
+    prof_q = device_profile(burst)
+    # the sequential loop: one (d2) request at a time on a fresh engine
+    seq_eng = CompiledExpr(mm_expr, Format(mm_fmt),
+                           Schedule(loop_order=("i", "k", "j")),
+                           {"i": n, "j": n, "k": n})
+    t0 = time.perf_counter()
+    for a in d2_sets:
+        seq_eng.execute(a)
+    seq_s = time.perf_counter() - t0
+    idle = prof_q["idle_share"]
+    log(f"[q] a served burst of 80: {st_burst['requests_per_sec']:.3f} "
+        f"requests/s, {st_burst['dispatches']} dispatches; profiled burst "
+        f"{prof_q['wall_ms']:.1f} ms with {prof_q['device_busy_ms']:.3f} ms "
+        f"of kernels on the card, idle share "
+        + ("not measured" if idle is None else f"{idle:.4f}"))
+    log(f"[q] sequential loop: 64 (d2) requests one at a time on a fresh "
+        f"engine in {seq_s * 1e3:.1f} ms = {64 / seq_s:.3f} requests/s")
+
+    # admission of (o) under 4 GB: refused with reason, or served tiled
+    with SamServer(mem_budget="4GB", admission="reject") as s:
+        h = s.submit(Request(o_expr, o_arrays, formats={"B": "cc",
+                                                        "C": "dd"},
+                             order="ikj", density=o_dens))
+        err = h.exception(timeout=600)
+        if (not isinstance(err, AdmissionError) or err.reason != "over-budget"
+                or s.stats()["dispatches"]):
+            raise AssertionError(f"(q) (o) not refused over budget: {err}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with SamServer(mem_budget="4GB") as s:
+        h = s.submit(Request(o_expr, o_arrays, formats={"B": "cc",
+                                                        "C": "dd"},
+                             order="ikj", density=o_dens))
+        got_o = h.result(timeout=900)
+        st_o = s.stats()
+    q_o_ms = (time.perf_counter() - t0) * 1e3
+    # the request's own peak: the allocations live when it started (the
+    # earlier phases' tensors) are not its own
+    q_o_peak = torch.cuda.max_memory_allocated() - base
+    check_equal("(q) (o) served tiled", tree_to_dense(got_o), want_o)
+    if st_o["tiled_requests"] != 1 or q_o_peak > o_budget:
+        raise AssertionError(f"(q) (o) stats {st_o}, peak {q_o_peak}")
+    log(f"[q] (o) refused over budget with admission='reject'; served "
+        f"tiled under 4GB in {q_o_ms:.1f} ms, equal to (o)'s oracle, peak "
+        f"allocated {q_o_peak} bytes above the {base} live before it "
+        f"(budget {o_budget})")
+    workloads["serving (q)"] = {
+        "wall_ms": q_wall * 1e3, "stats": st_q, "burst_stats": st_burst,
+        "profile": prof_q, "pipeline_threads": pipeline,
+        "sequential_requests_per_sec": 64 / seq_s,
+        "sequential_ms": seq_s * 1e3, "o_tiled_ms": q_o_ms,
+        "o_tiled_peak_bytes": q_o_peak, "warm_ms": q_wall * 1e3 / 82}
+    del q_jobs, q_results, d2_sets, q_w1t, q_xt, q_gat, got_o
+
+    # -- (r) distributed tiles on the card -----------------------------------
+    from repro_torch.core.dist_exec import DistTiledExpr, InjectedFault
+
+    ref_o = teng(o_arrays)                   # (o)'s TiledExpr result
+    dist = DistTiledExpr(teng, workers=2, overlap=True, faults=[
+        InjectedFault(tile=1, worker=w, attempt=0) for w in (0, 1)])
+
+    def dist_call(label):
+        """One distributed call: host ms and its peak allocated bytes above
+        what was live before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = dist(o_arrays)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        same = (np.array_equal(out.vals, ref_o.vals) and all(
+            np.array_equal(a.crd, b.crd) and np.array_equal(a.seg, b.seg)
+            for a, b in zip(out.levels, ref_o.levels)))
+        if not same:
+            raise AssertionError(f"(r) {label}: differs from (o)'s TiledExpr")
+        check_equal(f"(r) {label}", tree_to_dense(out), want_o)
+        if peak > o_budget:
+            raise AssertionError(f"(r) {label}: peak {peak} above the "
+                                 f"budget {o_budget}")
+        return ms, peak
+
+    kops.reset_launch_counts()               # the two DistTiledExpr calls only
+    r_first, r_peak_first = dist_call("first call")
+    r_warm, r_peak_warm = dist_call("warm call")
+    per_phase["r"] = kops.launch_counts()
+    if (dist.stats["tiles"] != 4 or dist.stats["retries"] < 1
+            or per_phase["r"]["segment_reduce"] < 1):
+        raise AssertionError(f"(r) stats {dist.stats}, launches "
+                             f"{per_phase['r']}")
+    log(f"[r] DistTiledExpr of (o), 2 workers, overlap: tile 1 failed on "
+        f"its first attempt on each call and was retried "
+        f"({dist.failure_log[0]}); equal to "
+        f"(o)'s TiledExpr bit for bit and to the oracle; first call "
+        f"{r_first:.1f} ms, warm {r_warm:.1f} ms (o: first "
+        f"{first_o:.1f}, warm {warm_o:.1f}); peak {r_peak_first} and "
+        f"{r_peak_warm} bytes (budget {o_budget}); stats {dist.stats}; "
+        f"launches {per_phase['r']}")
+    workloads["distributed tiles (r)"] = {
+        "first_ms": r_first, "warm_ms": r_warm, "peak_first_bytes":
+        r_peak_first, "peak_warm_bytes": r_peak_warm,
+        "stats": dict(dist.stats), "failure_log": dist.failure_log}
+    del dist, ref_o
+
+    # the CLI: serve --sam with a budget that tiles, tiles over 2 workers
+    cli_dims = {"i": 4096, "j": 512, "k": 4096}
+    cli_est = tiling.estimate_call_bytes(
+        o_expr, o_fmt, o_sch, cli_dims, densities={"B": 0.002, "C": 0.002})
+    cli_budget = cli_est // 3
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--sam",
+           o_expr, "--sam-order", "ikj", "--sam-formats", "B=cc,C=dd",
+           "--sam-dims", ",".join(f"{k}={v}" for k, v in cli_dims.items()),
+           "--sam-density", "0.002", "--mem-budget", str(cli_budget),
+           "--workers", "2", "--batch", "2", "--reps", "2"]
+    t0 = time.perf_counter()
+    cli = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    cli_s = time.perf_counter() - t0
+    for line in cli.stdout.splitlines():
+        log(f"[r] cli: {line}")
+    if (cli.returncode or "OUT-OF-CORE" not in cli.stdout
+            or "DISTRIBUTED" not in cli.stdout):
+        raise AssertionError(f"(r) serve --sam exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    log(f"[r] serve --sam --mem-budget {cli_budget} (a third of the untiled "
+        f"estimate {cli_est}) --workers 2 exited 0 in {cli_s:.1f} s")
+    workloads["distributed tiles (r)"]["cli_budget"] = cli_budget
+    del o_arrays, want_o, teng, spmspm_d, want_d
+
+    # the serving path's launches join the kernels line
+    for row in kernels:
+        row["launches"] += per_phase["q"][row["name"]] + per_phase["r"][
+            row["name"]]
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

@@ -101,7 +101,7 @@ PAD = co.PAD_KEY
 
 # what the unported path waits for: its entry in ROADMAP.md's list of
 # what is still to port
-_DIST_SLICE = "ROADMAP.md, still to port #5: distributed tiles"
+_DIST_SLICE = "ROADMAP.md, still to port #5: lanes over several GPUs"
 
 
 @dataclasses.dataclass
@@ -852,7 +852,8 @@ def _check_shard_lanes(shard_lanes, par_n: int) -> None:
     if m < 2:
         raise ValueError(
             f"cannot shard {par_n} lane(s) over {torch.cuda.device_count()} "
-            f"device(s)" + (f" with --devices {bound}" if bound else ""))
+            f"device(s)" + (f" with --devices {bound}" if bound else "")
+            + f"; lanes over GPUs are not ported yet either ({_DIST_SLICE})")
     raise NotImplementedError(
         f"lanes over {m} GPUs are not ported yet ({_DIST_SLICE})")
 
@@ -1373,6 +1374,7 @@ class TiledExpr:
                  mem_budget: Optional[int] = None,
                  densities: Optional[Dict[str, float]] = None):
         self.device = co.resolve_device(device)
+        self.use_kernels = use_kernels
         self.assign: Assignment = (parse(expr) if isinstance(expr, str)
                                    else expr)
         self.fmt = fmt

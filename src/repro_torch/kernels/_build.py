@@ -56,7 +56,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _F, _I, _P],
     "sam_bsr_attention_tc_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _I, _P],
-    "sam_coo_levels": [_P, _P, _LL, _I, _LL, _P, _P, _P],
+    "sam_coo_levels": [_P, _P, _LL, _I, _LL, _P, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

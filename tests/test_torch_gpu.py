@@ -496,6 +496,63 @@ def test_bsr_attention_equals_plain(cuda, bs, d, causal, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _attention_f64(q, k, v, kv_idx, bs, causal):
+    """float64 block-masked softmax attention (zeros for a row with no
+    allowed key), the oracle both sides are held to below."""
+    bh, s, d = q.shape
+    n_blk = k.shape[1] // bs
+    allow = np.zeros((s // bs, n_blk), bool)
+    for qi, row in enumerate(kv_idx):
+        allow[qi, row[(row >= 0) & (row < n_blk)]] = True
+    allow = np.kron(allow, np.ones((bs, bs), bool))
+    if causal:
+        allow &= np.tri(s, k.shape[1], dtype=bool)
+    out = np.zeros((bh, s, d))
+    for h in range(bh):
+        sc = q[h].astype(np.float64) @ k[h].astype(np.float64).T / d ** 0.5
+        sc = np.where(allow, sc, -np.inf)
+        m = sc.max(1, keepdims=True)
+        p = np.exp(sc - np.where(np.isfinite(m), m, 0.0))
+        l = p.sum(1, keepdims=True)
+        out[h] = np.where(l > 0, p @ v[h].astype(np.float64)
+                          / np.where(l > 0, l, 1.0), 0.0)
+    return out
+
+
+@pytest.mark.gpu
+def test_bsr_attention_cuda_core_case_twenty_times_in_a_row(cuda):
+    """The case that once differed from its plain version (ROADMAP queue 3,
+    item 5): block size 1, head dim 32, float32 on the CUDA-core kernel,
+    launched 20 times in a row from fresh uploads. Each launch must equal
+    the plain version within the file's float32 tolerance, and both must
+    stay within it of a float64 oracle, so a failure names the side that
+    moved; the launches must agree bit for bit."""
+    bs, d = 1, 32
+    rng = np.random.default_rng(bs + d)
+    n_blk = 512
+    kv_idx = kops.sliding_window_kv_idx(n_blk, n_blk, 3, causal=False)
+    kv_idx[2] = n_blk
+    q, k, v = (rng.standard_normal((2, n_blk, d)).astype(np.float32)
+               for _ in range(3))
+    assert attn_mod.route(bs, bs, d) == "cuda_cores"
+    oracle = _attention_f64(q, k, v, kv_idx, bs, False)
+    want = bsr_flash_attention_plain(*map(torch.as_tensor, (q, k, v)),
+                                     torch.as_tensor(kv_idx), bq=bs, bkv=bs)
+    tol = 2e-5
+    np.testing.assert_allclose(want.double().numpy(), oracle, rtol=tol,
+                               atol=tol, err_msg="the plain version")
+    first = None
+    for rep in range(20):
+        got = bsr_flash_attention(*(torch.as_tensor(x).to(cuda)
+                                    for x in (q, k, v, kv_idx)),
+                                  bq=bs, bkv=bs).cpu()
+        np.testing.assert_allclose(got.double().numpy(), oracle, rtol=tol,
+                                   atol=tol, err_msg=f"the kernel, {rep}")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        first = got if first is None else first
+        assert torch.equal(got, first), f"launch {rep} differs from launch 0"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bs,d,want", [(8, 64, "cuda_cores"),
                                        (128, 100, "cuda_cores"),
@@ -800,3 +857,115 @@ def test_auto_schedule_runs_on_the_card(cuda, tmp_path, monkeypatch):
     assert cpu.schedule == eng.schedule          # one cached pick
     np.testing.assert_array_equal(got.to_dense(), cpu(arrays).to_dense())
     np.testing.assert_array_equal(got.to_dense(), arrays["B"] @ arrays["C"])
+
+
+@pytest.mark.gpu
+def test_threaded_server_on_the_card_equals_execute_batch(cuda):
+    """Four submitter threads through a threaded ``SamServer`` on the
+    card: every result equals the same engine's ``execute_batch`` of the
+    same members bit for bit and numpy, the reduce kernels launch from the
+    dispatch thread, and one pipeline of four threads serves them."""
+    import threading
+
+    from repro_torch.core.serving import Request, SamServer
+
+    expr, fmt = "X(i,j) = B(i,k) * C(k,j)", {"B": "cc", "C": "cc"}
+    n = 256
+    sets = [{m: ((rng.random((n, n)) < 0.02)
+                 * rng.integers(1, 9, (n, n))).astype(float) for m in "BC"}
+            for rng in map(np.random.default_rng, range(20, 36))]
+    srv = SamServer(max_batch=4)
+    assert srv.device.type == "cuda"
+    kops.reset_launch_counts()
+    out = [None] * len(sets)
+
+    def submit(t):
+        hs = [(i, srv.submit(Request(expr, sets[i], formats=fmt,
+                                     order="ikj")))
+              for i in range(t, len(sets), 4)]
+        for i, h in hs:
+            out[i] = h.result(timeout=60)
+
+    threads = [threading.Thread(target=submit, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    names = sorted(t.name for t in srv._threads)
+    st = srv.stats()
+    srv.shutdown()
+    assert names == ["sam-serve-batcher", "sam-serve-decode",
+                     "sam-serve-dispatch", "sam-serve-encode"]
+    assert st["completed"] == len(sets) and st["failed"] == 0
+    assert kops.launch_counts()["scatter_workspace"] > 0
+    eng = compile_expr(expr, Format(fmt),
+                       Schedule(loop_order=("i", "k", "j")),
+                       {"i": n, "j": n, "k": n})
+    for got, ref, s in zip(out, eng.execute_batch(sets), sets):
+        assert np.array_equal(got.vals, ref.vals)
+        assert all(np.array_equal(a.crd, b.crd) and np.array_equal(a.seg,
+                                                                   b.seg)
+                   for a, b in zip(got.levels, ref.levels))
+        np.testing.assert_array_equal(got.to_dense(), s["B"] @ s["C"])
+
+
+@pytest.mark.gpu
+def test_distributed_tiles_on_the_card_equal_tiled_under_a_fault(cuda):
+    """``DistTiledExpr`` over two workers on the card (threaded), tile 1
+    failing on its first attempt: retried, and bit-identical to the
+    ``TiledExpr`` it drives and to numpy."""
+    from repro_torch.core.dist_exec import DistTiledExpr, InjectedFault
+
+    dims = {"i": 512, "j": 128, "k": 512}
+    arrays = _spmm_dense_c(np.random.default_rng(15), 512, 512, 128, 0.02)
+    eng = compile_expr("X(i,j) = B(i,k) * C(k,j)",
+                       Format({"B": "cc", "C": "dd"}),
+                       Schedule(loop_order=("i", "k", "j"),
+                                tile={"i": 2, "k": 2}), dims)
+    ref = eng(arrays)
+    dist = DistTiledExpr(eng, workers=2, overlap=True, faults=[
+        InjectedFault(tile=1, worker=w, attempt=0) for w in (0, 1)])
+    kops.reset_launch_counts()
+    got = dist(arrays)
+    assert dist.stats["retries"] == 1 and dist.stats["tiles"] == 4
+    assert sum(kops.launch_counts().values()) > 0
+    assert np.array_equal(got.vals, ref.vals)
+    assert all(np.array_equal(a.crd, b.crd) and np.array_equal(a.seg, b.seg)
+               for a, b in zip(got.levels, ref.levels))
+    np.testing.assert_array_equal(got.to_dense(), arrays["B"] @ arrays["C"])
+
+
+@pytest.mark.gpu
+def test_threaded_server_runs_a_fused_program_on_the_card(cuda):
+    """A fused program served from the dispatch thread launches
+    ``coo_to_levels`` there (its stream handle once reached the kernel
+    library as a truncated C int, and the launch crashed off the main
+    thread) and equals the same program called on the main thread."""
+    from repro_torch.core.serving import Request, SamServer
+
+    prog = "T(i,j) = B(i,j) * C(i,f) * D(j,f); A(i,g) = T(i,j) * E(j,g)"
+    fmt = {"B": "cc", "T": "cc", "C": "dd", "D": "dd", "E": "dd", "A": "dd"}
+    order = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
+    rng = np.random.default_rng(16)
+    n, f = 512, 16
+    arrays = {"B": ((rng.random((n, n)) < 0.02)
+                    * rng.integers(1, 4, (n, n))).astype(float),
+              **{t: rng.integers(-3, 4, (n, f)).astype(float)
+                 for t in "CDE"}}
+    dims = {"i": n, "j": n, "f": f, "g": f}
+    schedules = {k: Schedule(loop_order=o) for k, o in order.items()}
+    cp = compile_program(prog, Format(fmt), schedules, dims)
+    assert cp.stats["fused_stages"] == 2
+    want = cp(arrays)["A"].to_dense()
+    kops.reset_launch_counts()
+    with SamServer(max_batch=2) as srv:
+        hs = [srv.submit(Request(prog, arrays, formats=fmt,
+                                 schedule=schedules, dims=dims))
+              for _ in range(3)]
+        got = [h.result(timeout=60)["A"].to_dense() for h in hs]
+    assert kops.launch_counts()["coo_to_levels"] >= 3
+    for g in got:
+        np.testing.assert_array_equal(g, want)
+    T = arrays["B"] * (arrays["C"] @ arrays["D"].T)
+    np.testing.assert_array_equal(want, T @ arrays["E"])

@@ -48,7 +48,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.sddmm_bsr",
             "repro_torch.kernels.bsr_attention", "repro_torch.core.simulator",
             "repro_torch.core.program",
-            "repro_torch.kernels.coo_levels"} <= set(mods)
+            "repro_torch.kernels.coo_levels", "repro_torch.core.serving",
+            "repro_torch.core.dist_exec", "repro_torch.launch.serve",
+            "repro_torch.launch.mesh", "repro_torch.distributed.elastic",
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.distributed.sharding"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -75,6 +79,28 @@ def test_source_imports_no_jax_or_repro(path):
     assert not _IMPORT.findall(text), f"{path} imports jax or repro"
 
 
+_C_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _c_entries():
+    text = "".join(p.read_text()
+                   for p in sorted((PORT / "kernels" / "csrc").glob("*.cu")))
+    return {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+            for m in _C_ENTRY.finditer(text)}
+
+
+@pytest.mark.parametrize("name", sorted(_c_entries()))
+def test_ctypes_signature_matches_the_c_entry(name):
+    """Every C entry of the kernel library has a ctypes signature with one
+    type a parameter, the stream included. An argument past the declared
+    types is passed as a C int, so a missing pointer type leaves the upper
+    half of a stack-passed stream handle undefined (``sam_coo_levels``
+    crashed that way when launched from a worker thread)."""
+    from repro_torch.kernels import _build
+
+    assert len(_build._SIGNATURES[name]) == _c_entries()[name]
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the no-GPU refusal is not reachable")
@@ -87,7 +113,11 @@ def _entry_calls():
     from repro_torch.core.torch_backend import (CompiledExpr, compile_expr,
                                                 compile_program, execute_expr,
                                                 execute_graph)
+    from repro_torch.core.dist_exec import dist_compile
+    from repro_torch.core.serving import SamServer
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import main as serve_main
 
     fmt = Format({"B": "cc", "c": "c"})
     sch = Schedule(loop_order=("i", "j"))
@@ -115,13 +145,22 @@ def _entry_calls():
         "accumulate_coo": lambda: co.accumulate_coo(
             np.zeros(0, np.int64), np.zeros(0, np.float32),
             np.arange(3), np.ones(3)),
+        "SamServer": lambda: SamServer(sync=True),
+        "dist_compile": lambda: dist_compile(
+            "x(i) = B(i,j) * c(j)", fmt,
+            Schedule(loop_order=("i", "j"), tile={"j": 3}), dims),
+        "make_host_mesh": lambda: make_host_mesh(),
+        "serve": lambda: serve_main(["--sam", "x(i) = B(i,j) * c(j)",
+                                     "--sam-dims", "i=2,j=3"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["compile_expr", "compile_expr_bsr",
                                    "CompiledExpr", "execute_expr",
                                    "execute_graph", "compile_program",
-                                   "sam_primitive", "accumulate_coo"])
+                                   "sam_primitive", "accumulate_coo",
+                                   "SamServer", "dist_compile",
+                                   "make_host_mesh", "serve"])
 def test_entry_points_refuse_without_gpu(entry):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):
