@@ -47,7 +47,8 @@ Phases:
       (sparsity 0.005, one device, a schedule cache in a temporary
       directory), run through compile_expr and equal to (d)'s oracle; a
       second resolve must be a cache hit; then (o) with "auto" under its
-      budget: a tiled pick whose tiles fit, equal to (o)'s oracle;
+      budget: a tiled pick whose tiles fit, equal to (o)'s oracle (run
+      only where the compile cache does not hand back (o)'s own engine);
   (g)-(j) the block-sparse (b-format) path at the full widths of
       llama3.2-3b-bsr (d_model 3072, d_ff 8192, 24 heads of 128, window
       4096 = 32 blocks of 128), through compile_expr -> BsrEngine:
@@ -77,10 +78,41 @@ Phases:
       level's count (overflow), and on an empty and a one-row input;
   (l2) the same at extents that are not powers of two, dims
       [4099, 33554393, 7] (the kernel's multiply-shift quotients);
+  (s) the pruned transformer (models.pruned_transformer.PrunedTransformer)
+      at qwen3-0.6b's widths (d_model 1024, 16 heads and 8 kv heads of
+      128, d_ff 3072), 2 of its 28 layers, 128 tokens, attention blocks of
+      32 in a window of 2, FFN density 0.5, seed 0: FFN up and down through
+      compile_program("auto") (about 201M products each), each head's
+      attention a request to a sync SamServer; the forward within 1e-5 of
+      reference() (relative to its largest magnitude), 32 requests in 2
+      dispatches, one FFN call a layer, bsr_attention launched at least 32
+      times on its tensor-core route and a reduce kernel at least once;
+      a first and a warm call, then one that records the largest input
+      of each kernel for (f); its profiles run after (f);
+  (t) the MoE layer at Moonlight's widths (moonshot-v1-16b-a3b: 64
+      experts, top-6, d_model 2048, expert d_ff 1408, 2 shared experts):
+      apply_moe on a (1, 4096, 2048) prefill in float32 and bfloat16, sam
+      at capacity factors 1.0 (pairs drop) and 1.25 against the dense
+      one-hot dispatch with the same keep-mask, then at E/k (nothing
+      drops) against dense (1e-5 relative in float32, also against a
+      float64 oracle, 1e-2 in bfloat16); MoEBlock(64, 2, 8, 2048,
+      1408), a decode step of 8 tokens at capacity 2, within 1e-5 of
+      moe_swiglu_reference with the same drops (its down stage streams
+      369M products), one call, which copies the largest input of each
+      kernel to the host for (f); compile_moe_block at the same shape,
+      fused and fuse=False, one call each, on integer data in {-1, 0, 1},
+      equal to moe_linear_reference exactly, with decisions [True, True,
+      False] fused, coo_to_levels launched by the fused cascades and a
+      reduce kernel in each; (t)(1)'s profile runs after (f);
   (f) every kernel against its plain PyTorch version at the shapes (c)-(k)
-      gave it, and fused_imr through the intersect_mul_reduce entry on
-      sorted streams with NA = 4M, NB = 1M, num_slots = 2**20. The
-      block-sparse kernels are also held on a fully masked q block (zeros)
+      gave it and at the largest calls of (s) and (t)(2) (float data:
+      kernel and plain version each within the float32 summation bound of
+      the float64 sum, gamma_n * sum|x| a slot, and equal on the same ids
+      with integer values in {-1, 0, 1}; the kernels line carries the
+      largest of each kernel's shapes), and fused_imr
+      through the intersect_mul_reduce entry on sorted streams with
+      NA = 4M, NB = 1M, num_slots = 2**20. The block-sparse kernels are
+      also held on a fully masked q block (zeros)
       and in bfloat16; coo_to_levels also at (l)'s shape. sddmm_bsr is also
       held on standard-normal float32 at (h)'s shape, and spmm_bsr at
       (g)'s, each element within the worst case of 3xTF32 against
@@ -106,16 +138,17 @@ Phases:
       engine's execute_batch bit for bit, submitted == completed, no failed
       or rejected request, four sam-serve-* threads while it runs;
       requests/s, latency percentiles, the card's idle share over one served
-      burst and a sequential loop (execute one (d2) request at a time on a
-      fresh engine) are printed; then (o) under a 4 GB budget is refused
+      burst (profiled; its requests/s too) and a sequential loop (execute
+      one (d2) request at a time on a fresh engine) are printed; then (o)
+      under a 4 GB budget is refused
       with reason "over-budget" (admission="reject") and served tiled once
       (admission="tile"), equal to (o)'s oracle, its peak above what was
       live before it within the budget;
   (r) distributed tiles: (o)'s TiledExpr through DistTiledExpr with two
       workers, overlap on, tile 1 failing on its first attempt: 4 tiles, a
       retry, the result bit-identical to (o)'s TiledExpr and equal to the
-      oracle, peak (above what was live) within the budget on the first and
-      the warm call; then ``python -m repro_torch.launch.serve --sam ...
+      oracle, peak (above what was live) within the budget, one call;
+      then ``python -m repro_torch.launch.serve --sam ...
       --mem-budget B --workers 2`` in a subprocess, B a third of the
       request's untiled estimate, must exit 0 and print its OUT-OF-CORE and
       DISTRIBUTED lines;
@@ -135,6 +168,9 @@ sddmm_bsr and bsr_attention must have launched only their tensor-core
 kernels (the launches by route are printed). They are zeroed
 before (k), (k2), (l) and (l2) too: coo_to_levels and a reduce kernel must have
 launched in (k), and no call of (k) may regrow its recorded capacities.
+They are zeroed before (s)'s first forward and read after it, and before
+the call of each of (t)'s MoEBlock and two compile_moe_block builds and
+read after it; their launches join the kernels line's.
 fused_imr's counter is zeroed before its own entry call in (f) and read
 after it. Any mismatch or error exits non-zero. The last lines printed are
 the ``kernels`` JSON line (with ``bound_ms`` under the rule at
@@ -228,8 +264,16 @@ GAT_FMT = {"B": "cc", "T": "cc", "C": "dd", "D": "dd", "E": "dd", "A": "dd"}
 GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 
 
+_START = time.perf_counter()
+PHASE_END_S = {}            # seconds since start at each phase's last line
+
+
 def log(*parts):
-    print(*parts, flush=True)
+    text = " ".join(str(p) for p in parts)
+    if text.startswith("[") and "]" in text:
+        PHASE_END_S[text[1:text.index("]")]] = round(
+            time.perf_counter() - _START, 1)
+    print(text, flush=True)
 
 
 def sparse_int(rng, shape, density):
@@ -315,12 +359,14 @@ def oracle(expr, arrays):
     return total
 
 
-def warm_ms(fn, reps=5):
-    """Median host-clock ms over ``reps`` calls after one warm-up (each
-    call ends in a device-to-host copy of the result, which synchronizes)."""
+def warm_ms(fn, reps=5, warmup=True):
+    """Median host-clock ms over ``reps`` calls, after one warm-up unless
+    the caller's own first call was it (each call ends in a device-to-host
+    copy of the result, which synchronizes)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -332,13 +378,20 @@ def warm_ms(fn, reps=5):
 
 
 def event_ms(fn, reps=20):
-    """Device time per call from CUDA events around ``reps`` calls."""
+    """Device time per call from CUDA events around ``reps`` calls, or
+    around fewer (at least 3) where ``reps`` would take over a second (a
+    plain version or a library call at 2^28 rows takes 0.3-0.6 s)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(3, min(reps, int(1e3 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -371,25 +424,33 @@ def profiled_device_ms(fn, match, reps=20, per_call=1):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiler_warmup()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = mine = 0.0
-    recorded = 0
-    split = {}
-    for evt in prof.key_averages():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or "spin_kernel" in evt.key):
-            continue
-        total += evt.self_device_time_total
-        if match in evt.key:
-            mine += evt.self_device_time_total
-            recorded += evt.count
-            name = re.search(rf"\w*{match}\w*", evt.key).group(0)
-            split[name] = split.get(name, 0.0) + evt.self_device_time_total
+    # a session may record none of the launches (several sessions of one
+    # process have): up to three sessions, the first that records any
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiler_warmup()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = mine = 0.0
+        recorded = 0
+        split = {}
+        for evt in prof.key_averages():
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or "spin_kernel" in evt.key):
+                continue
+            total += evt.self_device_time_total
+            if match in evt.key:
+                mine += evt.self_device_time_total
+                recorded += evt.count
+                name = re.search(rf"\w*{match}\w*", evt.key).group(0)
+                split[name] = (split.get(name, 0.0)
+                               + evt.self_device_time_total)
+        if recorded:
+            break
+        log(f"  profiler recorded no {match} launch in session "
+            f"{attempt + 1} of 3")
     if not recorded:
         return None, None
     if recorded != reps * per_call:
@@ -471,21 +532,51 @@ def main() -> int:
                 bsr_flash_attention.__code__: "bsr_attention",
                 coo_to_levels.__code__: "coo_to_levels"}
 
-    def record_kernel_inputs(tag, fn):
+    def tensor_elements(kw):
+        return sum(v.numel() for v in kw.values() if torch.is_tensor(v))
+
+    def record_kernel_inputs(tag, fn, largest=False, to=None):
         """Run ``fn`` once, keeping a copy of the arguments of every call
-        to a kernel wrapper (observed with a profile hook: nothing in the
-        package is rebound)."""
-        def hook(frame, event, arg):
-            name = wrappers.get(frame.f_code) if event == "call" else None
-            if name is not None:
-                seen.setdefault(tag, {}).setdefault(name, []).append({
-                    k: v.clone() if torch.is_tensor(v) else v
-                    for k, v in frame.f_locals.items()})
-        sys.setprofile(hook)
+        to a kernel wrapper, observed through ``sys.monitoring`` on the
+        wrappers' code alone: nothing in the package is rebound, no other
+        function pays for it, and it runs beside cProfile, so a profiled
+        call can record. ``largest`` keeps, per kernel, only the call with
+        the most tensor elements; ``to="cpu"`` copies to the host, so the
+        call's own peak on the card is untouched. Returns ``fn``'s result
+        and the seconds the host copies took."""
+        mon = sys.monitoring
+        tool = next(i for i in range(6) if mon.get_tool(i) is None)
+        copy_s = [0.0]
+
+        def on_start(code, offset):
+            calls = seen.setdefault(tag, {}).setdefault(wrappers[code], [])
+            kw = sys._getframe(1).f_locals
+            if largest and calls and (tensor_elements(kw)
+                                      <= tensor_elements(calls[0])):
+                return
+            if to:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept = {k: (v.to(to) if to else v.clone())
+                    if torch.is_tensor(v) else v for k, v in kw.items()}
+            copy_s[0] += time.perf_counter() - t0 if to else 0.0
+            calls[:] = [kept] if largest else calls + [kept]
+        mon.use_tool_id(tool, "chip_smoke")
+        mon.register_callback(tool, mon.events.PY_START, on_start)
+        for code in wrappers:
+            mon.set_local_events(tool, code, mon.events.PY_START)
         try:
-            fn()
+            out = fn()
         finally:
-            sys.setprofile(None)
+            for code in wrappers:
+                mon.set_local_events(tool, code, 0)
+            mon.register_callback(tool, mon.events.PY_START, None)
+            mon.free_tool_id(tool)
+        return out, copy_s[0]
+
+    def on_card(kw):
+        return {k: v.cuda() if torch.is_tensor(v) else v
+                for k, v in kw.items()}
 
     rng = np.random.default_rng(SEED)
     kops.reset_launch_counts()
@@ -569,7 +660,7 @@ def main() -> int:
                             dims)
 
     def run_workload(tag, label, eng, arrays, want, check=check_equal,
-                     reps=5, result=lambda out: out):
+                     reps=3, result=lambda out: out):
         """Drive one engine on one operand set: first call, warm median,
         recorded kernel inputs, host and device profiles. ``result`` picks
         the checked FiberTree out of what the engine returns; the first
@@ -580,10 +671,12 @@ def main() -> int:
         first_ms = (time.perf_counter() - t0) * 1e3
         dense = tree_to_dense(result(got))
         check(label, dense, want)
-        ms = warm_ms(lambda: eng(arrays), reps)
-        check(label + " (warm)", tree_to_dense(result(eng(arrays))), want)
-        record_kernel_inputs(tag, lambda: eng(arrays))
-        host = host_profile(lambda: eng(arrays))
+        ms = warm_ms(lambda: eng(arrays), reps, warmup=False)
+        # the host-profiled call records the kernels' inputs, and is checked
+        outs = []
+        host = host_profile(lambda: outs.append(record_kernel_inputs(
+            tag, lambda: eng(arrays))[0]))
+        check(label + " (warm)", tree_to_dense(result(outs.pop())), want)
         prof = device_profile(lambda: eng(arrays))
         after = kops.launch_counts()
         per_phase[tag] = {k: after[k] - before[k] for k in after}
@@ -808,11 +901,12 @@ def main() -> int:
                                  f"outlive the call")
         return ms, peak, {k: teng.engine.stats[k] - st0[k]
                           for k in ("plan_misses", "plan_hits",
-                                    "lane_dispatches")}
+                                    "lane_dispatches")}, out
 
     kops.reset_launch_counts()
-    first_o, peak_first, st_first = peak_call("first call")
-    warm_o, peak_warm, st_warm = peak_call("warm call")
+    first_o, peak_first, st_first, _ = peak_call("first call")
+    # (r) holds its distributed calls against this result
+    warm_o, peak_warm, st_warm, o_result = peak_call("warm call")
     per_phase["o"] = kops.launch_counts()
     # one plan for the four tiles, each run in pieces: one lane dispatch
     # a tile
@@ -840,11 +934,9 @@ def main() -> int:
                              f"{o_budget}")
     o_peak = max(peak_first, peak_warm)
 
-    # (f) holds segment_reduce at the largest shape the pieces gave it, and
-    # rebuilds the first tile's product stream PR 17 timed it on
-    record_kernel_inputs("o", lambda: teng(o_arrays))
-    seen["o"] = {k: [max(v, key=lambda kw: kw["keys"].numel())]
-                 for k, v in seen["o"].items() if k == "segment_reduce_mul"}
+    # (f) holds segment_reduce at the largest shape the pieces gave it (the
+    # host-profiled call below records it), and rebuilds the first tile's
+    # product stream PR 17 timed it on
     # (C's dense tile as a CSR whose every row holds all nj columns)
     ti, tk = np.nonzero(o_arrays["B"][:n // 2, :n // 2])
     o_tile = {"b": [torch.as_tensor(ti, device="cuda"),
@@ -861,7 +953,10 @@ def main() -> int:
     import pstats
 
     prof = cProfile.Profile()
-    prof.runcall(teng, o_arrays)
+    prof.runcall(record_kernel_inputs, "o", lambda: teng(o_arrays),
+                 largest=True)
+    seen["o"] = {k: v for k, v in seen["o"].items()
+                 if k == "segment_reduce_mul"}
     stages = {}
     for (path, _, func), (_, _, _, cum, _) in pstats.Stats(
             prof).stats.items():
@@ -936,13 +1031,19 @@ def main() -> int:
             if (not isinstance(po, TiledExpr) or not po.schedule.tile
                     or po.tile_bytes > o_budget):
                 raise AssertionError(f"(p) budgeted pick {po.schedule}")
-            t0 = time.perf_counter()
-            check_equal("(p) (o) auto", tree_to_dense(po(o_arrays)), want_o)
+            # the compile cache may hand back (o)'s own engine, whose
+            # result (o) checked; any other pick runs here
+            ran = ""
+            if po is not teng:
+                t0 = time.perf_counter()
+                check_equal("(p) (o) auto", tree_to_dense(po(o_arrays)),
+                            want_o)
+                ran = (f"; equals (o)'s oracle, "
+                       f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
             log(f"[p] (o) auto under 4GB: pick {po.schedule.loop_order} tile "
                 f"{po.schedule.tile} ({po.n_tiles} tiles of "
                 f"{po.tile_bytes} estimated bytes, search and build "
-                f"{po_s:.3f} s; the engine of (o): {po is teng}); equals "
-                f"(o)'s oracle, {(time.perf_counter() - t0) * 1e3:.1f} ms")
+                f"{po_s:.3f} s; the engine of (o): {po is teng}){ran}")
         finally:
             if saved_cache is None:
                 os.environ.pop("SAM_SCHEDULE_CACHE", None)
@@ -1193,6 +1294,287 @@ def main() -> int:
         f"{counts_l2} exact and equal to the plain version at caps "
         f"{caps_l2} and at half the counts (overflow)")
 
+    # -- (s) the pruned transformer at qwen3-0.6b's widths -------------------
+    # configs/qwen3_0_6b.py: d_model 1024, 16 heads and 8 kv heads of 128,
+    # d_ff 3072; depth cut from 28 layers to 2, 128 tokens. Its profiles
+    # run after (f): a profile that spans the server leaves later sessions
+    # missing device events
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.qwen3_0_6b import CFG as QWEN
+    from repro_torch.models.pruned_transformer import PrunedTransformer
+
+    s_cfg = dataclasses.replace(QWEN, n_layers=2)
+    s_x = np.random.default_rng(SEED + 700).standard_normal(
+        (128, s_cfg.d_model)).astype(np.float32)
+    saved_cache = os.environ.get("SAM_SCHEDULE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SAM_SCHEDULE_CACHE"] = os.path.join(tmp, "s.json")
+        try:
+            t0 = time.perf_counter()
+            model = PrunedTransformer(s_cfg, seq_len=128, block=32,
+                                      window_blocks=2, ffn_density=0.5,
+                                      seed=0)
+            s_build_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if saved_cache is None:
+                os.environ.pop("SAM_SCHEDULE_CACHE", None)
+            else:
+                os.environ["SAM_SCHEDULE_CACHE"] = saved_cache
+    s_want = model.reference(s_x)
+
+    def peak_call(fn):
+        """One call: its host ms and its peak allocated bytes above what
+        was live before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() - base)
+
+    def rel_err(got, want):
+        got = np.asarray(got, np.float64)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            return np.inf
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    kops.reset_launch_counts()
+    s_y, s_first, s_peak_first = peak_call(lambda: model(s_x))
+    per_phase["s"] = kops.launch_counts()
+    check_routes("s", "bsr_attention")
+    s_stats = model.stats()
+    s_err = rel_err(s_y, s_want)
+    if (s_err > 1e-5 or s_stats["server"]["completed"] != 32
+            or s_stats["server"]["dispatches"] != 2
+            or s_stats["ffn_up_calls"] != 2
+            or per_phase["s"]["bsr_attention"] < 32
+            or per_phase["s"]["scatter_workspace"]
+            + per_phase["s"]["segment_reduce"] < 1):
+        raise AssertionError(f"(s) rel err {s_err}, stats {s_stats}, "
+                             f"launches {per_phase['s']}")
+    _, s_warm, s_peak_warm = peak_call(lambda: model(s_x))
+    # (f) holds each kernel at the largest call a forward makes of it
+    record_kernel_inputs("s", lambda: model(s_x), largest=True)
+    workloads["pruned transformer (s)"] = {
+        "build_ms": s_build_ms, "first_ms": s_first, "warm_ms": s_warm,
+        "peak_first_bytes": s_peak_first, "peak_warm_bytes": s_peak_warm,
+        "rel_err": s_err, "stats": s_stats, "ffn_loop_orders": [
+            list(st.schedule.loop_order) for cp in (model.ffn_up,
+                                                    model.ffn_down)
+            for st in cp.lp.stages]}
+    log(f"[s] PrunedTransformer(qwen3-0.6b, 2 of 28 layers, 128 tokens, "
+        f"blocks of 32, window 2, FFN density 0.5): built in "
+        f"{s_build_ms:.1f} ms; first call {s_first:.1f} ms, warm "
+        f"{s_warm:.1f} ms; peak {s_peak_first} and {s_peak_warm} bytes; rel "
+        f"err {s_err:.3e} against reference() (tolerance 1e-5); "
+        f"{s_stats['server']['completed']} attention requests in "
+        f"{s_stats['server']['dispatches']} dispatches, ffn_up_calls "
+        f"{s_stats['ffn_up_calls']}; the \"auto\" FFN loop orders "
+        f"{workloads['pruned transformer (s)']['ffn_loop_orders']}; launches "
+        f"{per_phase['s']}")
+    del s_y
+
+    # -- (t) the MoE layer at Moonlight's widths -----------------------------
+    # configs/moonshot_v1_16b_a3b.py: 64 experts, top-6, d_model 2048,
+    # expert d_ff 1408, 2 shared experts; one layer of 48. (t)(1)'s profile
+    # runs after (f), as (s)'s do
+    from repro_torch.configs.moonshot_v1_16b_a3b import CFG as MOON
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import apply_mlp
+    from repro_torch.models.moe_blocks import (MoEBlock, compile_moe_block,
+                                               moe_linear_reference,
+                                               moe_swiglu_reference,
+                                               routing_tensors)
+
+    n_exp, top_k = MOON.n_experts, MOON.top_k
+    dm, dff = MOON.d_model, MOON.moe_d_ff
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    moe_p = moe_mod.init_moe(g, dm, dff, n_exp,
+                             n_shared=MOON.n_shared_experts)
+    t_x = torch.randn((1, 4096, dm), device="cuda", generator=g)
+
+    def masked_dense(x, gate, dtype):
+        """The dense one-hot dispatch with the kept gate in the compute
+        dtype: every expert on every token, combined by ``gate``, plus the
+        shared experts (it rounds where sam rounds)."""
+        xf = x.reshape(-1, dm).to(dtype)
+        ye = moe_mod._expert_ffn(moe_p, xf.expand(n_exp, *xf.shape), dtype)
+        out = torch.einsum("et,etd->td", torch.as_tensor(
+            gate, device="cuda").to(dtype), ye)
+        return (out + apply_mlp(moe_p["shared"], xf, compute_dtype=dtype)
+                ).float().cpu().numpy()
+
+    def moe_oracle(x, gate):
+        """float64 on the card: each expert on the tokens it keeps,
+        combined by the kept gate, plus the shared experts."""
+        x64 = x.reshape(-1, dm).double()
+        out = torch.zeros_like(x64)
+        gate = torch.as_tensor(gate, device="cuda")
+        for e in range(n_exp):
+            live = gate[e].nonzero().squeeze(1)
+            if live.numel():
+                h = (torch.nn.functional.silu(
+                    x64[live] @ moe_p["w_gate"][e].double())
+                     * (x64[live] @ moe_p["w_up"][e].double()))
+                out[live] += gate[e, live, None] * (
+                    h @ moe_p["w_down"][e].double())
+        sh = moe_p["shared"]
+        out += (torch.nn.functional.silu(x64 @ sh["w_gate"].double())
+                * (x64 @ sh["w_up"].double())) @ sh["w_down"].double()
+        return out.cpu().numpy()
+
+    w_t, ids_t = moe_mod.route_topk(moe_p["router"], t_x.reshape(-1, dm),
+                                    top_k)
+    w_t, ids_t = w_t.cpu().numpy(), ids_t.cpu().numpy()
+    # the largest load an expert takes: capacities above it keep every pair
+    t_load = int(np.bincount(ids_t.ravel(), minlength=n_exp).max())
+    t1 = {}
+
+    def prefill(name, dtype, disp, cf):
+        """One apply_moe configuration: first call, warm (CUDA events),
+        peak; returns the output as float32 numpy (T, D)."""
+        def run():
+            return moe_mod.apply_moe(moe_p, t_x, k=top_k, dispatch=disp,
+                                     capacity_factor=cf, compute_dtype=dtype)
+        out, first, peak = peak_call(run)
+        t1[(name, disp, cf)] = {"first_ms": first,
+                                "warm_ms": event_ms(run, reps=5),
+                                "peak_bytes": peak}
+        return out.float().cpu().numpy().reshape(-1, dm)
+
+    # capacity factor 1.0 (384 slots an expert, the mean load) drops pairs;
+    # 1.25 is the default; E / k gives T slots, so nothing drops. The kept
+    # gate (E, T) is routing_tensors' combine tensor summed over the slots
+    gates = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        name = str(dtype).split(".")[1]
+        dense_out = prefill(name, dtype, "dense", None)
+        for cf in (1.0, 1.25, n_exp / top_k):
+            cap = max(8, int(cf * 4096 * top_k / n_exp))
+            sam_out = prefill(name, dtype, "sam", cf)
+            kept = min(cap, t_load)
+            if kept not in gates:
+                _, S_t, dropped = routing_tensors(w_t, ids_t, n_exp, kept)
+                gates[kept] = (S_t.sum(2).T, dropped)
+                del S_t
+            gate, dropped = gates[kept]
+            if cf < n_exp / top_k:
+                # sam crops each expert to its capacity: hold it against the
+                # dense one-hot dispatch with the same keep-mask
+                err = rel_err(sam_out, masked_dense(t_x, gate, dtype))
+                what = "the masked dense dispatch"
+            else:
+                err = rel_err(sam_out, dense_out.astype(np.float64))
+                what = "dense"
+            err64 = rel_err(sam_out, moe_oracle(t_x, gate))
+            log(f"[t] apply_moe {name}, capacity_factor {cf:.4f} (cap {cap}):"
+                f" {dropped} of {ids_t.size} pairs dropped; sam against "
+                f"{what}: rel err {err:.3e} (tolerance {tol}); against the "
+                f"masked float64 oracle {err64:.3e}")
+            t1[(name, "rel_err", cf)] = {"err": err, "err64": err64,
+                                         "dropped": dropped, "cap": cap}
+            if (err > tol or (dtype == torch.float32 and err64 > tol)
+                    or (cf == 1.0) != (dropped > 0)):
+                raise AssertionError(f"(t) apply_moe {name} cf {cf}: rel "
+                                     f"err {err} ({err64} from float64) "
+                                     f"above {tol}, or {dropped} dropped")
+    for (name, disp, cf), row in t1.items():
+        if disp != "rel_err":
+            log(f"[t] apply_moe (1, 4096, {dm}) {name} {disp}"
+                + ("" if cf is None else f" cf {cf:.4f}") + ": first "
+                f"{row['first_ms']:.3f} ms, warm {row['warm_ms']:.3f} ms "
+                f"(CUDA events), peak {row['peak_bytes']} bytes")
+    workloads["MoE prefill (t)"] = {
+        "runs": {f"{n} {d} {c}": v for (n, d, c), v in t1.items()},
+        "warm_ms": t1[("float32", "sam", 1.25)]["warm_ms"]}
+    del sam_out, dense_out, gates
+
+    # (t)(2) MoEBlock: one decode step of 8 tokens at capacity 2; the
+    # reference's interface takes float64 numpy weights, which a call
+    # encodes (about 50 s on the host), so the phase makes one call: timed,
+    # its peak read, and the inputs of each kernel's largest call copied to
+    # the host for (f) (the copies' seconds are taken off its time)
+    p64 = {k: moe_p[k].double().cpu().numpy()
+           for k in ("router", "w_gate", "w_up", "w_down")}
+    x8 = np.random.default_rng(SEED + 800).standard_normal((8, dm))
+    block = MoEBlock(n_exp, 2, 8, dm, dff)
+    kops.reset_launch_counts()
+    (got8, t2_copy_s), t2_ms, t2_peak = peak_call(
+        lambda: record_kernel_inputs("t", lambda: block(p64, x8, k=top_k),
+                                     largest=True, to="cpu"))
+    t2_first = t2_ms - t2_copy_s * 1e3
+    per_phase["t2"] = kops.launch_counts()
+    w8, ids8 = moe_mod.route_topk(moe_p["router"],
+                                  torch.as_tensor(x8, dtype=torch.float32,
+                                                  device="cuda"), top_k)
+    G8, S8, dropped8 = routing_tensors(w8.cpu().numpy(), ids8.cpu().numpy(),
+                                       n_exp, 2)
+    t0 = time.perf_counter()
+    want8 = moe_swiglu_reference(p64, x8, G8, S8)
+    t2_oracle_s = time.perf_counter() - t0
+    t2_err = rel_err(got8, want8)
+    if (t2_err > 1e-5 or block.last_dropped != dropped8
+            or per_phase["t2"]["coo_to_levels"] < 1
+            or per_phase["t2"]["scatter_workspace"]
+            + per_phase["t2"]["segment_reduce"] < 1):
+        raise AssertionError(f"(t) MoEBlock rel err {t2_err}, dropped "
+                             f"{block.last_dropped} ({dropped8}), launches "
+                             f"{per_phase['t2']}")
+    log(f"[t] MoEBlock({n_exp}, 2, 8, {dm}, {dff}), top-{top_k}: "
+        f"last_dropped {block.last_dropped}; one call {t2_first:.1f} ms "
+        f"({t2_ms:.1f} with {t2_copy_s * 1e3:.1f} of host copies of the "
+        f"kernels' inputs); peak {t2_peak} bytes (the down stage streams "
+        f"{n_exp * 2 * dff * dm} products); rel err {t2_err:.3e} against "
+        f"moe_swiglu_reference (tolerance 1e-5, {t2_oracle_s:.1f} s in "
+        f"numpy); launches {per_phase['t2']}")
+    workloads["MoEBlock decode (t)"] = {
+        "first_ms": t2_first, "copy_ms": t2_copy_s * 1e3,
+        "peak_bytes": t2_peak, "rel_err": t2_err,
+        "last_dropped": block.last_dropped, "oracle_s": t2_oracle_s}
+    del got8, block, p64
+
+    # (t)(3) the linear MoE chain on integer data in {-1, 0, 1}: every
+    # partial sum stays far below 2**24, so both builds must equal the
+    # float64 oracle exactly; one call each (two float weights of 184.5M
+    # entries are encoded a call)
+    rt = np.random.default_rng(SEED + 900)
+    G8, S8, _ = routing_tensors(np.ones_like(w8.cpu().numpy()),
+                                ids8.cpu().numpy(), n_exp, 2)
+    lin_arrays = {"G": G8, "S": S8,
+                  "X": rt.integers(-1, 2, (8, dm)).astype(float),
+                  "Wu": rt.integers(-1, 2, (n_exp, dm, dff)).astype(float),
+                  "Wd": rt.integers(-1, 2, (n_exp, dff, dm)).astype(float)}
+    t0 = time.perf_counter()
+    lin_want = moe_linear_reference(**lin_arrays)["O"]
+    t3_oracle_s = time.perf_counter() - t0
+    for tag, fuse in (("t3", True), ("t3s", False)):
+        cp = compile_moe_block(n_exp, 2, 8, dm, dff, fuse=fuse)
+        decisions = [d.fused for d in cp.decisions]
+        kops.reset_launch_counts()
+        out, ms, peak = peak_call(lambda: cp(lin_arrays))
+        per_phase[tag] = kops.launch_counts()
+        check_equal(f"({tag}) compile_moe_block fuse={fuse}",
+                    out["O"].to_dense(), lin_want)
+        if (decisions != ([True, True, False] if fuse else [False] * 3)
+                or (fuse and per_phase[tag]["coo_to_levels"] < 1)
+                or per_phase[tag]["scatter_workspace"]
+                + per_phase[tag]["segment_reduce"] < 1):
+            raise AssertionError(f"({tag}) decisions {decisions}, launches "
+                                 f"{per_phase[tag]}")
+        workloads["MoE chain " + ("fused" if fuse else "staged") + " (t)"] = {
+            "first_ms": ms, "peak_bytes": peak, "decisions": decisions}
+        log(f"[t] compile_moe_block({n_exp}, 2, 8, {dm}, {dff}, fuse={fuse})"
+            f": decisions {decisions}; O equals moe_linear_reference "
+            f"({t3_oracle_s:.1f} s in numpy) exactly; one call {ms:.1f} ms, "
+            f"peak {peak} bytes; launches {per_phase[tag]}")
+        clear_program_cache()
+        del cp, out
+    del lin_arrays
+
     # -- (f) kernels against their plain versions ----------------------------
     # each kernel is timed at the last input a warm (plan-cached) call of
     # each workload handed it; the kernels line carries the largest of
@@ -1231,11 +1613,15 @@ def main() -> int:
 
     def report(name, launches, kernel, plain, library, nbytes, nops, where,
                tol=0.0, flat=lambda out: out, per_call=1,
-               rate=FP32_OPS_PER_S):
+               rate=FP32_OPS_PER_S, check=None):
         """Hold a kernel against its plain version and time both; ``rate``
         is the operation rate of its bound (``PRODUCT_OPS_PER_S`` for the
-        matrix products)."""
-        err = held(name, flat(kernel()), flat(plain()), where, tol)
+        matrix products). ``check(kernel_out, plain_out)``, where given,
+        replaces the elementwise tolerance and returns the max abs error."""
+        if check is None:
+            err = held(name, flat(kernel()), flat(plain()), where, tol)
+        else:
+            err = check(kernel(), plain())
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = nops / rate
         row = {"name": name, "route": "cuda",
@@ -1272,9 +1658,15 @@ def main() -> int:
         """Bytes of the 32-byte sectors that hold the given rows of an
         array of ``row_bytes``-byte rows (a row of up to 32 bytes spans at
         most two sectors)."""
+        if not rows.numel():
+            return 0
         first = rows * row_bytes // 32
         last = (rows * row_bytes + row_bytes - 1) // 32
-        return torch.unique(torch.cat([first, last])).numel() * 32
+        touched = torch.zeros(int(last.max()) + 1, dtype=torch.bool,
+                              device=rows.device)
+        touched[first] = True
+        touched[last] = True
+        return int(touched.sum()) * 32
 
     # the reduce kernels skip a row whose id lies outside [0, slots) before
     # they read its values, so their bound counts every id, the values of
@@ -1282,7 +1674,98 @@ def main() -> int:
     def reduce_launches(name):
         return sum(per_phase[t][name] for t in "mnop") + main_counts[name]
 
+    def integer_valued(*tensors):
+        return all(t is None or bool(torch.equal(t, t.round()))
+                   for t in tensors)
+
+    def sum_bound_check(name, where, ids, terms, nslots, product):
+        """The check for float data, whose sums the kernel's atomics and
+        the plain version's ``index_add_`` take in different orders: each
+        output within gamma_n * sum|x| of its slot's float64 sum, n the
+        slot's row count plus one where each term is a product rounded to
+        float32 first (float32 summation in any order; the float64 sums'
+        own error, at most n * 2^-52 * sum|x|, is added to the bound).
+        ``terms``: the (N, C) exact float64 terms, zero where a row adds
+        nothing."""
+        ids64 = ids.long()
+        ids64 = torch.where((ids64 >= 0) & (ids64 < nslots), ids64, nslots)
+
+        def slot_sum(x):
+            return torch.zeros((nslots + 1,) + tuple(x.shape[1:]),
+                               dtype=torch.float64, device="cuda"
+                               ).index_add_(0, ids64, x)[:nslots]
+        exact, mag = slot_sum(terms), slot_sum(terms.abs())
+        n = slot_sum(torch.ones(ids64.numel(), dtype=torch.float64,
+                                device="cuda")) + (1 if product else 0)
+        nu = n * 2.0 ** -24
+        if bool((nu >= 0.5).any()):
+            raise AssertionError(f"{name} at {where}: a slot of "
+                                 f"{int(n.max())} rows has no float32 bound")
+        tol = ((nu / (1 - nu) + n * 2.0 ** -52)[:, None] * mag)
+        del ids64, mag, n, nu
+
+        def check(out_k, out_p):
+            torch.cuda.synchronize()
+            for who, out in (("kernel", out_k), ("plain version", out_p)):
+                if out.shape != exact.shape or not torch.isfinite(out).all():
+                    raise AssertionError(f"{name}: the {who} gives "
+                                         f"{tuple(out.shape)} or non-finite "
+                                         f"values at {where}")
+                over = float(((out.double() - exact).abs() - tol).max())
+                if over > 0:
+                    raise AssertionError(
+                        f"{name}: the {who} leaves the float32 summation "
+                        f"bound of the float64 sum at {where} by {over}")
+            err = float((out_k.double() - out_p.double()).abs().max())
+            log(f"  {name} at {where}: float data; kernel and plain version "
+                f"each within gamma_n * sum|x| of the float64 sum of every "
+                f"slot (largest bound {float(tol.max()):.3e}); they differ "
+                f"by at most {err:.3e}")
+            return err
+        return check
+
+    def equal_on_integers(name, where, run, values, keep_last=False):
+        """``run(values) -> (kernel out, plain out)`` on the same ids with
+        the values redrawn as integers in {-1, 0, 1} (``keep_last`` keeps
+        the last column, a hit mask): every float32 partial sum is then an
+        exact integer (a slot holds fewer than 2^23 rows, which the bound
+        check asserts), so the two must be equal."""
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        ints = [torch.randint(-1, 2, v.shape, device="cuda", generator=g
+                              ).to(v.dtype) for v in values]
+        if keep_last:
+            ints[0][:, -1] = values[0][:, -1]
+        out_k, out_p = run(*ints)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version on integer values at {where}")
+        log(f"  {name} at {where}: the same ids with integer values in "
+            f"{{-1, 0, 1}}: kernel equals its plain version")
+
     def workspace_row(tag, ids, cols, slots, mp):
+        n_live = int(((ids >= 0) & (ids < slots)).sum())
+        where = (f"({tag}) N={ids.numel()} live={n_live} "
+                 f"C={cols.shape[1]} slots={slots} mul_pair={mp}")
+        check = None
+        if not integer_valued(cols):
+            if mp:
+                hit = cols[:, 2] > 0
+                c64 = torch.where(hit, cols[:, 0].double()
+                                  * cols[:, 1].double(), 0.0)
+                c64 = torch.stack([c64, hit.double()], 1)
+                del hit
+            else:
+                c64 = cols.double()
+            check = sum_bound_check("scatter_workspace", where, ids, c64,
+                                    slots, mp)
+            del c64
+            equal_on_integers(
+                "scatter_workspace", where, lambda c: (
+                    scatter_workspace(ids, c, num_slots=slots, mul_pair=mp),
+                    scatter_workspace_plain(ids, c, num_slots=slots,
+                                            mul_pair=mp)),
+                [cols], keep_last=mp)
         ids64 = ids.long().clamp(0, slots)
         c_out = 2 if mp else cols.shape[1]
         lib_cols = cols[:, :c_out].contiguous()
@@ -1297,14 +1780,23 @@ def main() -> int:
                                 ).index_add_(0, ids64, lib_cols),
             ids.numel() * ids.element_size()
             + sector_bytes(live, cols.shape[1] * 4) + slots * c_out * 4,
-            live.numel() * c_out,
-            f"({tag}) N={ids.numel()} live={live.numel()} "
-            f"C={cols.shape[1]} slots={slots} mul_pair={mp}")
+            live.numel() * c_out, where, check=check)
 
     def segment_row(tag, vals, sids, nseg):
         """The general entry: (N, D) values by int32 id."""
         sids64 = sids.long().clamp(0, nseg)
         live = ((sids >= 0) & (sids < nseg)).nonzero().squeeze(1)
+        where = (f"({tag}) N={vals.shape[0]} live={live.numel()} "
+                 f"D={vals.shape[1]} S={nseg}")
+        check = None
+        if not integer_valued(vals):
+            check = sum_bound_check("segment_reduce", where, sids,
+                                    vals.double(), nseg, False)
+            equal_on_integers(
+                "segment_reduce", where, lambda v: (
+                    segment_reduce(v, sids, num_segments=nseg),
+                    segment_reduce_plain(v, sids, num_segments=nseg)),
+                [vals])
         return report(
             "segment_reduce", reduce_launches("segment_reduce"),
             lambda: segment_reduce(vals, sids, num_segments=nseg),
@@ -1315,9 +1807,7 @@ def main() -> int:
             sids.numel() * sids.element_size()
             + sector_bytes(live, vals.shape[1] * vals.element_size())
             + nseg * vals.shape[1] * vals.element_size(),
-            live.numel() * vals.shape[1],
-            f"({tag}) N={vals.shape[0]} live={live.numel()} "
-            f"D={vals.shape[1]} S={nseg}")
+            live.numel() * vals.shape[1], where, check=check)
 
     def segment_mul_row(tag, kw):
         """The [a*b, 1] mode at the inputs the engine handed it. Its bound
@@ -1327,7 +1817,25 @@ def main() -> int:
         scatter), so it has no library time."""
         keys, a, b, valid = kw["keys"], kw["a"], kw["b"], kw["valid"]
         nseg = kw["num_segments"]
-        live = (valid & (keys >= 0) & (keys < nseg)).nonzero().squeeze(1)
+        live_mask = valid & (keys >= 0) & (keys < nseg)
+        live = live_mask.nonzero().squeeze(1)
+        where = (f"({tag}) [a*b, 1] mode N={keys.numel()} "
+                 f"live={live.numel()} S={nseg}")
+        check = None
+        if not integer_valued(a, b):
+            prod = a.double() if b is None else a.double() * b.double()
+            check = sum_bound_check(
+                "segment_reduce", where, torch.where(live_mask, keys, nseg),
+                torch.stack([torch.where(live_mask, prod, 0.0),
+                             live_mask.double()], 1), nseg, b is not None)
+            del prod
+            equal_on_integers(
+                "segment_reduce", where, lambda a2, b2=None: (
+                    segment_reduce_mul(keys, a2, b2, valid,
+                                       num_segments=nseg),
+                    segment_reduce_mul_plain(keys, a2, b2, valid,
+                                             num_segments=nseg)),
+                [a] if b is None else [a, b])
         return report(
             "segment_reduce", reduce_launches("segment_reduce"),
             lambda: segment_reduce_mul(keys, a, b, valid, num_segments=nseg),
@@ -1335,15 +1843,18 @@ def main() -> int:
                                              num_segments=nseg), None,
             keys.numel() * 9 + sector_bytes(live, 4)
             * (1 if b is None else 2) + nseg * 2 * 4,
-            live.numel() * (3 if b is not None else 2),
-            f"({tag}) [a*b, 1] mode N={keys.numel()} live={live.numel()} "
-            f"S={nseg}")
+            live.numel() * (3 if b is not None else 2), where, check=check)
 
+    # (s) and (t)(2) recorded the largest call of each kernel (float data:
+    # held against float64 within the float32 summation bound, and on the
+    # same ids with integer values, exactly)
     rows = []
-    for tag in ("c", "d", "d2", "e"):
+    for tag in ("c", "d", "d2", "e", "s", "t"):
         for kw in seen.get(tag, {}).get("scatter_workspace", [])[-1:]:
+            kw = on_card(kw)
             rows.append(workspace_row(tag, kw["ids"], kw["cols"],
                                       kw["num_slots"], kw["mul_pair"]))
+            del kw
     kernels.append(max(rows, key=lambda r: r["bytes"]))
 
     # segment_reduce on the main path: the general entry's D = 1 calls
@@ -1351,14 +1862,23 @@ def main() -> int:
     # the [a*b, 1] mode over a key space ((d), (m), each lane of (o)'s
     # tiles); the kernels line carries the largest of those
     rows = []
-    for tag in ("c", "e", "k"):
+    for tag in ("c", "e", "k", "s", "t"):
         for kw in seen.get(tag, {}).get("segment_reduce", [])[-1:]:
+            kw = on_card(kw)
             rows.append(segment_row(tag, kw["vals"], kw["seg_ids"],
                                     kw["num_segments"]))
-    for tag in ("d", "m", "o"):
+    for tag in ("d", "m", "o", "s", "t"):
         for kw in seen.get(tag, {}).get("segment_reduce_mul", [])[-1:]:
-            rows.append(segment_mul_row(tag, kw))
+            rows.append(segment_mul_row(tag, on_card(kw)))
     kernels.append(max(rows, key=lambda r: r["bytes"]))
+    # the model blocks' reduce inputs are done with; the float64 checks at
+    # 2^29 rows leave the allocator holding memory a library call (Triton
+    # allocates outside it) then cannot get
+    for tag in ("s", "t"):
+        for name in ("scatter_workspace", "segment_reduce",
+                     "segment_reduce_mul"):
+            seen.get(tag, {}).pop(name, None)
+    torch.cuda.empty_cache()
 
     # the general entry at the two shapes PR 17 timed it at, rebuilt with
     # the key structure its recorded inputs had: a [value, 1] stream whose
@@ -1711,14 +2231,20 @@ def main() -> int:
             parent = cap
         return total
 
-    for tag, kw in (("k", seen["k"]["coo_to_levels"][-1]),
-                    ("l", {"keys": keys_l, "valid": valid_l,
-                           "dims_list": dims_l, "caps": caps_l}),
-                    ("l2", {"keys": keys_l2, "valid": valid_l2,
-                            "dims_list": dims_l2, "caps": caps_l2})):
+    coo_cases = [("k", seen["k"]["coo_to_levels"][-1]),
+                 ("l", {"keys": keys_l, "valid": valid_l,
+                        "dims_list": dims_l, "caps": caps_l}),
+                 ("l2", {"keys": keys_l2, "valid": valid_l2,
+                         "dims_list": dims_l2, "caps": caps_l2})]
+    # the largest call of (s)'s and (t)(2)'s fused cascades, where they
+    # launched it
+    coo_cases += [(tag, on_card(kw)) for tag in ("s", "t")
+                  for kw in seen.get(tag, {}).get("coo_to_levels", [])]
+    for tag, kw in coo_cases:
         ck, cv, cd, cc = kw["keys"], kw["valid"], kw["dims_list"], kw["caps"]
         row = report(
-            "coo_to_levels", per_phase[tag]["coo_to_levels"],
+            "coo_to_levels", per_phase[{"t": "t2"}.get(tag, tag)][
+                "coo_to_levels"],
             lambda: coo_to_levels(ck, cv, cd, cc),
             lambda: coo_to_levels_plain(ck, cv, cd, cc), None,
             coo_bytes(ck.numel(), cc), 0,
@@ -1726,12 +2252,43 @@ def main() -> int:
             flat=coo_flat, per_call=4)       # launches a call, N > 0
         if tag == "k":
             kernels.append(row)
-    del keys_l, valid_l, keys_l2, valid_l2
+    del keys_l, valid_l, keys_l2, valid_l2, coo_cases, kw
+
+    # -- (s) and (t): their profiles, after (f) -----------------------------
+    seen.clear()                     # (f)'s copies of the kernels' inputs
+    torch.cuda.empty_cache()
+    s_prof = device_profile(lambda: model(s_x))
+    s_host = host_profile(lambda: model(s_x))
+    workloads["pruned transformer (s)"].update(profile=s_prof,
+                                               host_profile=s_host)
+    log("[s] host (cProfile cumulative ms) " + ", ".join(
+        f"{r['name']} {r['cum_ms']:.1f}" for r in s_host))
+    log(f"[s] profiled call {s_prof['wall_ms']:.1f} ms with "
+        f"{s_prof['device_busy_ms']:.3f} ms of kernels on the card, idle "
+        f"share " + ("not measured" if s_prof["idle_share"] is None
+                     else f"{s_prof['idle_share']:.4f}"))
+    for row in s_prof["top_kernels"][:4]:
+        log(f"[s]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+    model.close()
+    del model
+
+    t1_prof = device_profile(lambda: moe_mod.apply_moe(
+        moe_p, t_x, k=top_k, dispatch="sam", capacity_factor=1.25,
+        compute_dtype=torch.float32))
+    workloads["MoE prefill (t)"]["profile"] = t1_prof
+    log(f"[t] apply_moe float32 sam cf 1.25, profiled call "
+        f"{t1_prof['wall_ms']:.3f} ms with {t1_prof['device_busy_ms']:.3f} "
+        f"ms of kernels on the card, idle share "
+        + ("not measured" if t1_prof["idle_share"] is None
+           else f"{t1_prof['idle_share']:.4f}"))
+    for row in t1_prof["top_kernels"][:4]:
+        log(f"[t]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+    del t_x, moe_p
+    clear_program_cache()
 
     # -- (q) serving, threaded, on the card ---------------------------------
     # last of the paths, after (f): a torch.profiler session that spans
     # the server's threads leaves later sessions missing device events
-    seen.clear()                     # (f)'s copies of the kernels' inputs
     # four submitter threads at once, each 16 requests of (d2)'s product (a
     # density each, uniform in [0.005, 0.02], a seed each) and 4 of (e)'s
     # Plus3, plus a b-format SpMM at (g)'s shape and the fused GAT program at
@@ -1895,8 +2452,10 @@ def main() -> int:
                 raise AssertionError(f"(q) burst: {bad[0].exception()}")
             return s.stats()
 
-    st_burst = burst()
-    prof_q = device_profile(burst)
+    # one burst, profiled (its requests/s carry the profiler's cost)
+    bursts = []
+    prof_q = device_profile(lambda: bursts.append(burst()))
+    st_burst = bursts[0]
     # the sequential loop: one (d2) request at a time on a fresh engine
     seq_eng = CompiledExpr(mm_expr, Format(mm_fmt),
                            Schedule(loop_order=("i", "k", "j")),
@@ -1955,7 +2514,7 @@ def main() -> int:
     # -- (r) distributed tiles on the card -----------------------------------
     from repro_torch.core.dist_exec import DistTiledExpr, InjectedFault
 
-    ref_o = teng(o_arrays)                   # (o)'s TiledExpr result
+    ref_o = o_result                         # (o)'s TiledExpr result
     dist = DistTiledExpr(teng, workers=2, overlap=True, faults=[
         InjectedFault(tile=1, worker=w, attempt=0) for w in (0, 1)])
 
@@ -1981,27 +2540,25 @@ def main() -> int:
                                  f"budget {o_budget}")
         return ms, peak
 
-    kops.reset_launch_counts()               # the two DistTiledExpr calls only
-    r_first, r_peak_first = dist_call("first call")
-    r_warm, r_peak_warm = dist_call("warm call")
+    # one call (its plans are (o)'s engine's, built before): a second
+    # call would add about 12 s to the script's time limit
+    kops.reset_launch_counts()               # the DistTiledExpr call only
+    r_ms, r_peak = dist_call("the call")
     per_phase["r"] = kops.launch_counts()
     if (dist.stats["tiles"] != 4 or dist.stats["retries"] < 1
             or per_phase["r"]["segment_reduce"] < 1):
         raise AssertionError(f"(r) stats {dist.stats}, launches "
                              f"{per_phase['r']}")
     log(f"[r] DistTiledExpr of (o), 2 workers, overlap: tile 1 failed on "
-        f"its first attempt on each call and was retried "
-        f"({dist.failure_log[0]}); equal to "
-        f"(o)'s TiledExpr bit for bit and to the oracle; first call "
-        f"{r_first:.1f} ms, warm {r_warm:.1f} ms (o: first "
-        f"{first_o:.1f}, warm {warm_o:.1f}); peak {r_peak_first} and "
-        f"{r_peak_warm} bytes (budget {o_budget}); stats {dist.stats}; "
-        f"launches {per_phase['r']}")
+        f"its first attempt and was retried ({dist.failure_log[0]}); equal "
+        f"to (o)'s TiledExpr bit for bit and to the oracle; one call "
+        f"{r_ms:.1f} ms (o: first {first_o:.1f}, warm {warm_o:.1f}); peak "
+        f"{r_peak} bytes (budget {o_budget}); stats {dist.stats}; launches "
+        f"{per_phase['r']}")
     workloads["distributed tiles (r)"] = {
-        "first_ms": r_first, "warm_ms": r_warm, "peak_first_bytes":
-        r_peak_first, "peak_warm_bytes": r_peak_warm,
-        "stats": dict(dist.stats), "failure_log": dist.failure_log}
-    del dist, ref_o
+        "first_ms": r_ms, "peak_bytes": r_peak, "stats": dict(dist.stats),
+        "failure_log": dist.failure_log}
+    del dist, ref_o, o_result
 
     # the CLI: serve --sam with a budget that tiles, tiles over 2 workers
     cli_dims = {"i": 4096, "j": 512, "k": 4096}
@@ -2012,7 +2569,7 @@ def main() -> int:
            o_expr, "--sam-order", "ikj", "--sam-formats", "B=cc,C=dd",
            "--sam-dims", ",".join(f"{k}={v}" for k, v in cli_dims.items()),
            "--sam-density", "0.002", "--mem-budget", str(cli_budget),
-           "--workers", "2", "--batch", "2", "--reps", "2"]
+           "--workers", "2", "--batch", "2", "--reps", "1"]
     t0 = time.perf_counter()
     cli = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=600, env={**os.environ,
@@ -2029,10 +2586,11 @@ def main() -> int:
     workloads["distributed tiles (r)"]["cli_budget"] = cli_budget
     del o_arrays, want_o, teng, spmspm_d, want_d
 
-    # the serving path's launches join the kernels line
+    # the model blocks' and the serving path's launches join the kernels
+    # line
     for row in kernels:
-        row["launches"] += per_phase["q"][row["name"]] + per_phase["r"][
-            row["name"]]
+        row["launches"] += sum(per_phase[t][row["name"]]
+                               for t in ("s", "t2", "t3", "t3s", "q", "r"))
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -2043,7 +2601,11 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     for label, w in workloads.items():
-        log(f"[workload] {label}: warm {w['warm_ms']:.3f} ms")
+        log(f"[workload] {label}: " + (f"warm {w['warm_ms']:.3f} ms"
+                                       if "warm_ms" in w else
+                                       f"one call {w['first_ms']:.3f} ms"))
+    log(f"[time] seconds since start at each phase's last line "
+        f"{json.dumps(PHASE_END_S)}")
     log(json.dumps({"kernels": [
         {k: v for k, v in r.items()
          if k not in ("shape", "bytes", "device_ms", "kernel_device_ms",

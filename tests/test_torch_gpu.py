@@ -969,3 +969,109 @@ def test_threaded_server_runs_a_fused_program_on_the_card(cuda):
         np.testing.assert_array_equal(g, want)
     T = arrays["B"] * (arrays["C"] @ arrays["D"].T)
     np.testing.assert_array_equal(want, T @ arrays["E"])
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_pruned_transformer_on_the_card_equals_the_cpu(cuda, tmp_path,
+                                                      monkeypatch):
+    """The pruned transformer of ``chip_smoke.py`` (s) at a small size:
+    attention blocks of 16 with head dim 16 take the tensor-core
+    ``bsr_attention`` route; the card's forward equals the CPU's and the
+    float64 oracle within 1e-5, relative to the largest magnitude."""
+    from repro_torch.configs.qwen3_0_6b import REDUCED
+    from repro_torch.models.pruned_transformer import PrunedTransformer
+
+    monkeypatch.setenv("SAM_SCHEDULE_CACHE", str(tmp_path / "s.json"))
+    x = np.random.default_rng(17).standard_normal(
+        (64, REDUCED.d_model)).astype(np.float32)
+    kw = {"seq_len": 64, "block": 16, "window_blocks": 2}
+    with PrunedTransformer(REDUCED, device="cpu", **kw) as cpu_model:
+        want = cpu_model(x)
+        oracle = cpu_model.reference(x)
+    kops.reset_launch_counts()
+    with PrunedTransformer(REDUCED, **kw) as model:
+        got = model(x)
+        stats = model.stats()
+    counts = kops.launch_counts()
+    assert counts["bsr_attention"] == 8
+    assert kops.route_counts()["bsr_attention"]["tensor_cores"] == 8
+    assert counts["scatter_workspace"] + counts["segment_reduce"] >= 1
+    assert stats["server"]["completed"] == 8
+    assert stats["server"]["dispatches"] == 2
+    assert _rel(got, want) < 1e-5 and _rel(got, oracle) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_apply_moe_on_the_card_equals_the_cpu(cuda, dtype, tol):
+    """``apply_moe`` with shared experts, both dispatches, on the card
+    against the CPU from the same parameters (``chip_smoke.py`` (t))."""
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cpu").manual_seed(18)
+    p = moe.init_moe(g, 32, 16, 8, n_shared=2)
+    x = torch.randn((2, 40, 32), generator=g)
+    p_gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.cuda()) for k, v in p.items()}
+    for dispatch, cf in (("sam", 0.5), ("sam", 8.0), ("dense", 1.25)):
+        want = moe.apply_moe(p, x, k=2, dispatch=dispatch,
+                             capacity_factor=cf, compute_dtype=dtype)
+        got = moe.apply_moe(p_gpu, x.cuda(), k=2, dispatch=dispatch,
+                            capacity_factor=cf, compute_dtype=dtype)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        assert _rel(got.float().cpu(), want.float()) <= tol
+
+
+@pytest.mark.gpu
+def test_moe_blocks_on_the_card_equal_the_cpu(cuda):
+    """``MoEBlock`` (with drops) within 1e-5 of the CPU, the same
+    ``last_dropped``; ``compile_moe_block`` fused and staged on integer
+    data equal to the CPU's and to ``moe_linear_reference`` exactly, the
+    fused chain handing its intermediates over on ``coo_to_levels``."""
+    from repro_torch.models.moe_blocks import (MoEBlock, compile_moe_block,
+                                               moe_linear_reference,
+                                               routing_tensors)
+
+    e, cap, t, d, f, k = 8, 2, 12, 32, 16, 3
+    rng = np.random.default_rng(19)
+    p = {"router": rng.standard_normal((d, e)).astype(np.float32),
+         "w_gate": rng.standard_normal((e, d, f)),
+         "w_up": rng.standard_normal((e, d, f)),
+         "w_down": rng.standard_normal((e, f, d))}
+    x = rng.standard_normal((t, d))
+    cpu_block = MoEBlock(e, cap, t, d, f, device="cpu")
+    want = cpu_block(p, x, k=k)
+    kops.reset_launch_counts()
+    block = MoEBlock(e, cap, t, d, f)
+    got = block(p, x, k=k)
+    assert block.last_dropped == cpu_block.last_dropped > 0
+    assert kops.launch_counts()["coo_to_levels"] >= 2
+    assert _rel(got, want) < 1e-5
+
+    ids = np.stack([rng.choice(e, k, replace=False) for _ in range(t)])
+    G, S, dropped = routing_tensors(np.ones((t, k)), ids, e, cap)
+    arrays = {"G": G, "S": S,
+              "X": rng.integers(-1, 2, (t, d)).astype(float),
+              "Wu": rng.integers(-1, 2, (e, d, f)).astype(float),
+              "Wd": rng.integers(-1, 2, (e, f, d)).astype(float)}
+    lin = moe_linear_reference(G, S, arrays["X"], arrays["Wu"],
+                               arrays["Wd"])
+    for fuse in (True, False):
+        kops.reset_launch_counts()
+        out = compile_moe_block(e, cap, t, d, f, fuse=fuse)(arrays)
+        counts = kops.launch_counts()
+        ref = compile_moe_block(e, cap, t, d, f, fuse=fuse,
+                                device="cpu")(arrays)
+        assert (counts["coo_to_levels"] >= 1) == fuse
+        assert counts["scatter_workspace"] + counts["segment_reduce"] >= 1
+        for name in out:
+            np.testing.assert_array_equal(out[name].to_dense(),
+                                          ref[name].to_dense())
+            np.testing.assert_array_equal(out[name].to_dense(), lin[name])

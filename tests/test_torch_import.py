@@ -52,7 +52,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.core.dist_exec", "repro_torch.launch.serve",
             "repro_torch.launch.mesh", "repro_torch.distributed.elastic",
             "repro_torch.distributed.fault_tolerance",
-            "repro_torch.distributed.sharding"} <= set(mods)
+            "repro_torch.distributed.sharding", "repro_torch.configs",
+            "repro_torch.configs.base", "repro_torch.models.common",
+            "repro_torch.models.moe", "repro_torch.models.moe_blocks",
+            "repro_torch.models.pruned_transformer"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -118,6 +121,10 @@ def _entry_calls():
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.configs.qwen3_0_6b import REDUCED
+    from repro_torch.models.common import params_from_numpy
+    from repro_torch.models.moe_blocks import MoEBlock, compile_moe_block
+    from repro_torch.models.pruned_transformer import PrunedTransformer
 
     fmt = Format({"B": "cc", "c": "c"})
     sch = Schedule(loop_order=("i", "j"))
@@ -152,6 +159,11 @@ def _entry_calls():
         "make_host_mesh": lambda: make_host_mesh(),
         "serve": lambda: serve_main(["--sam", "x(i) = B(i,j) * c(j)",
                                      "--sam-dims", "i=2,j=3"]),
+        "compile_moe_block": lambda: compile_moe_block(2, 2, 4, 3, 3),
+        "MoEBlock": lambda: MoEBlock(2, 2, 4, 3, 3),
+        "PrunedTransformer": lambda: PrunedTransformer(REDUCED, seq_len=8,
+                                                       block=4),
+        "params_from_numpy": lambda: params_from_numpy({"w": np.ones(2)}),
     }
 
 
@@ -160,7 +172,9 @@ def _entry_calls():
                                    "execute_graph", "compile_program",
                                    "sam_primitive", "accumulate_coo",
                                    "SamServer", "dist_compile",
-                                   "make_host_mesh", "serve"])
+                                   "make_host_mesh", "serve",
+                                   "compile_moe_block", "MoEBlock",
+                                   "PrunedTransformer", "params_from_numpy"])
 def test_entry_points_refuse_without_gpu(entry):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):
