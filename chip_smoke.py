@@ -125,7 +125,12 @@ Phases:
       tile), and the general entry at the two shapes PR 17 timed it at,
       rebuilt from (o)'s first tile and (d)'s product streams (2^28 rows
       into 2^23 segments, 4,194,304 into 2^24), with scatter_workspace on
-      the same inputs beside them. fused_imr's bound counts a's value and
+      the same inputs beside them. Before scatter_workspace is held at an
+      input, the input's key structure is printed: the distinct ids and
+      the id span a tile of 4096 and of 1024 rows, the share of dropped
+      rows and where they sit; its library time is index_add_ of the
+      kernel's own output rows, staged outside the timed call ([a*b*hit,
+      hit] in mul_pair mode). fused_imr's bound counts a's value and
       output key and b's value only at the hits, and the reduce kernels'
       bounds the values of the rows whose id is in range only, in 32-byte
       sectors.
@@ -1743,10 +1748,54 @@ def main() -> int:
         log(f"  {name} at {where}: the same ids with integer values in "
             f"{{-1, 0, 1}}: kernel equals its plain version")
 
+    def id_figures(where, ids, slots, tile=4096):
+        """The key structure of a scatter_workspace input, by tiles of
+        ``tile`` rows: the distinct live ids and their span (max - min + 1)
+        a tile (largest and median over the tiles that hold a live row),
+        the share of dropped rows (ids outside [0, slots)) and where they
+        sit (their runs, and whether they are one run at the end)."""
+        n = ids.numel()
+        live = (ids >= 0) & (ids < slots)
+        distinct, span = [], []
+        for t0 in range(0, n, tile * 8192):      # 2^25 rows at a time
+            blk = ids[t0:t0 + tile * 8192].long()
+            ok = live[t0:t0 + tile * 8192]
+            pad = -blk.numel() % tile
+            blk = torch.nn.functional.pad(torch.where(ok, blk, -1), (0, pad),
+                                          value=-1).view(-1, tile)
+            srt = blk.sort(dim=1).values
+            has = srt[:, -1] >= 0
+            lo = torch.where(srt >= 0, srt, 1 << 40).min(dim=1).values
+            span.append((srt[:, -1] - lo + 1)[has])
+            distinct.append((((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0))
+                             .sum(dim=1) + (srt[:, 0] >= 0).long())[has])
+            del blk, ok, srt, has, lo
+        distinct, span = torch.cat(distinct), torch.cat(span)
+        n_dead = n - int(live.sum())
+        dead_runs = (int(~live[0]) + int((live[:-1] & ~live[1:]).sum())
+                     if n_dead else 0)
+        at_end = bool(n_dead and not live[n - n_dead:].any())
+        first_dead = (int((~live).nonzero()[0]) if n_dead else None)
+        log(f"  ids at {where}: tiles of {tile} rows with a live id "
+            f"{span.numel()}; distinct ids a tile max "
+            f"{int(distinct.max()) if distinct.numel() else 0} median "
+            f"{int(distinct.median()) if distinct.numel() else 0}; span a "
+            f"tile max {int(span.max()) if span.numel() else 0} median "
+            f"{int(span.median()) if span.numel() else 0}; dropped "
+            f"{n_dead} of {n} ({n_dead / max(n, 1):.4f}) in "
+            f"{dead_runs} runs, first at row {first_dead}, "
+            + ("all at the end" if at_end else "not only at the end"))
+        return {"tile": tile, "distinct_max": int(distinct.max())
+                if distinct.numel() else 0, "span_max": int(span.max())
+                if span.numel() else 0, "dropped": n_dead,
+                "dropped_at_end": at_end}
+
     def workspace_row(tag, ids, cols, slots, mp):
         n_live = int(((ids >= 0) & (ids < slots)).sum())
         where = (f"({tag}) N={ids.numel()} live={n_live} "
                  f"C={cols.shape[1]} slots={slots} mul_pair={mp}")
+        figures = [id_figures(where, ids, slots, tile)
+                   for tile in (4096, 1024)]
         check = None
         if not integer_valued(cols):
             if mp:
@@ -1766,11 +1815,20 @@ def main() -> int:
                     scatter_workspace_plain(ids, c, num_slots=slots,
                                             mul_pair=mp)),
                 [cols], keep_last=mp)
-        ids64 = ids.long().clamp(0, slots)
+        ids64 = ids.long()
+        ids64 = torch.where((ids64 >= 0) & (ids64 < slots), ids64, slots)
         c_out = 2 if mp else cols.shape[1]
-        lib_cols = cols[:, :c_out].contiguous()
+        if mp:
+            # the library call's input is the kernel's own [a*b*hit, hit],
+            # staged here, outside the timed call
+            hit = cols[:, 2] > 0
+            lib_cols = torch.stack([torch.where(hit, cols[:, 0] * cols[:, 1],
+                                                0.0), hit.float()], 1)
+            del hit
+        else:
+            lib_cols = cols.contiguous()
         live = ((ids >= 0) & (ids < slots)).nonzero().squeeze(1)
-        return report(
+        row = report(
             "scatter_workspace", reduce_launches("scatter_workspace"),
             lambda: scatter_workspace(ids, cols, num_slots=slots,
                                       mul_pair=mp),
@@ -1781,6 +1839,8 @@ def main() -> int:
             ids.numel() * ids.element_size()
             + sector_bytes(live, cols.shape[1] * 4) + slots * c_out * 4,
             live.numel() * c_out, where, check=check)
+        row["ids"] = figures
+        return row
 
     def segment_row(tag, vals, sids, nseg):
         """The general entry: (N, D) values by int32 id."""
@@ -2609,7 +2669,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {k: v for k, v in r.items()
          if k not in ("shape", "bytes", "device_ms", "kernel_device_ms",
-                      "ms_again")}
+                      "ms_again", "ids")}
         for r in kernels]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -38,53 +38,19 @@
 //   - float32 rows of D = 2 are one float2 load and one vector atomic
 //     (atomicAdd on float2, red.global.add.v2.f32 on sm_90), half the
 //     atomic instructions of two scalar ones; float64 keeps scalar atomics.
-#include "common.cuh"
+// The warp aggregation, the row atomics, the tile's id range and the
+// general-width body are shared with scatter_workspace.cu
+// (reduce_common.cuh).
+#include "reduce_common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// Sum x over the lanes in `peers` (the calling lane's group: equal ids);
-// the group's lowest lane gets the total. Every lane of the warp calls it
-// (the shuffles need the whole warp); the others' results are partial.
-// A tree over each group's lanes in rank order: after round r, a lane
-// whose rank is a multiple of 2^(r+1) holds the sum of 2^(r+1) peers.
-template <typename T>
-__device__ __forceinline__ T reduce_peers(unsigned peers, T x) {
-  const int lane = threadIdx.x & 31;
-  int rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & ~((2u << lane) - 1u);   // peers of higher lanes
-  while (__any_sync(kFull, above != 0u)) {
-    const int next = __ffs(above);                 // 0 when none is left
-    const T t = __shfl_sync(kFull, x, next ? next - 1 : lane);
-    if (next) x += t;
-    // lanes of odd rank have handed their sum to the peer below them
-    above &= ~__ballot_sync(kFull, rank & 1);
-    rank >>= 1;
-  }
-  return x;
-}
-
-// a rounded product that the compiler may not contract into a later add,
-// so the kernel rounds as the plain version does
-__device__ __forceinline__ float mul_rn(float x, float y) {
-  return __fmul_rn(x, y);
-}
-__device__ __forceinline__ double mul_rn(double x, double y) {
-  return __dmul_rn(x, y);
-}
-
-template <typename T>
-__device__ __forceinline__ void add_row2(T* dst, T v0, T v1) {
-  atomicAdd(dst, v0);
-  atomicAdd(dst + 1, v1);
-}
-
-template <>
-__device__ __forceinline__ void add_row2<float>(float* dst, float v0,
-                                                float v1) {
-  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v0, v1));
-}
+using sam::add_aggregated;
+using sam::add_row;
+using sam::kFull;
+using sam::kSlots;
+using sam::mul_rn;
+using sam::warp_sum;
 
 // The rows a kernel reads. id(i) is row i's segment, or -1 for a row that
 // adds nothing (its values are then never read); load(i, x) reads its D
@@ -128,46 +94,6 @@ struct MulRows {
   }
 };
 
-template <typename T, int D>
-__device__ __forceinline__ void add_row(T* dst, const T* x) {
-  if constexpr (D == 2) {
-    add_row2<T>(dst, x[0], x[1]);
-  } else {
-    for (int c = 0; c < D; ++c) atomicAdd(dst + c, x[c]);
-  }
-}
-
-// Add a row's D values x (s < 0: none) to segment s of the output, the
-// warp's rows of equal ids summed first where a lane's id equals its
-// neighbour's (a run: what repeats within a warp), one atomic a group.
-// Every lane of the warp calls it.
-template <typename T, int D>
-__device__ __forceinline__ void add_aggregated(T* out, int s, T* x) {
-  const int lane = threadIdx.x & 31;
-  const int prev = __shfl_up_sync(kFull, s, 1);
-  if (__any_sync(kFull, lane > 0 && s >= 0 && s == prev)) {
-    const unsigned peers = __match_any_sync(kFull, s);
-    for (int c = 0; c < D; ++c) x[c] = reduce_peers(peers, x[c]);
-    if (s >= 0 && __ffs(peers) - 1 == lane) {
-      add_row<T, D>(out + static_cast<long long>(s) * D, x);
-    }
-  } else if (s >= 0) {
-    add_row<T, D>(out + static_cast<long long>(s) * D, x);
-  }
-}
-
-// The segments a block's shared-memory accumulator holds (32 KB of them
-// whatever the type and width).
-template <typename T, int D>
-constexpr int kSlots = 32768 / (D * static_cast<int>(sizeof(T)));
-
-// Sum x over the whole warp; lane 0 gets the total.
-template <typename T>
-__device__ __forceinline__ T warp_sum(T x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(kFull, x, off);
-  return x;
-}
-
 // D = 1 or 2. A block walks tiles of kSteps * 256 consecutive rows (a
 // thread keeps its kSteps ids in registers between two passes). It first
 // finds the range of the tile's live ids; where the range fits kSlots, the
@@ -183,11 +109,9 @@ __global__ void __launch_bounds__(sam::kThreads)
 segment_reduce_tiles(Rows rows, T* __restrict__ out, long long n,
                      int num_segments) {
   constexpr int kTileRows = kSteps * sam::kThreads;
-  constexpr int kWarps = sam::kThreads / 32;
   __shared__ T acc[kSlots<T, D> * D];
-  __shared__ int warp_lo[kWarps], warp_hi[kWarps];
+  __shared__ int warp_lo[sam::kWarps], warp_hi[sam::kWarps];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   for (long long t0 = static_cast<long long>(blockIdx.x) * kTileRows; t0 < n;
        t0 += static_cast<long long>(gridDim.x) * kTileRows) {
     int sid[kSteps];
@@ -201,21 +125,7 @@ segment_reduce_tiles(Rows rows, T* __restrict__ out, long long n,
         hi = max(hi, sid[k]);
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(kFull, lo, off));
-      hi = max(hi, __shfl_xor_sync(kFull, hi, off));
-    }
-    if (lane == 0) {
-      warp_lo[warp] = lo;
-      warp_hi[warp] = hi;
-    }
-    __syncthreads();
-    lo = warp_lo[0];
-    hi = warp_hi[0];
-    for (int w = 1; w < kWarps; ++w) {
-      lo = min(lo, warp_lo[w]);
-      hi = max(hi, warp_hi[w]);
-    }
+    sam::tile_id_range(lo, hi, warp_lo, warp_hi);
     const int range = hi - lo + 1;      // block-uniform; <= 0: no live row
     if (range > 0 && range <= kSlots<T, D>) {
       for (int k = threadIdx.x; k < range * D; k += sam::kThreads) {
@@ -299,21 +209,7 @@ __global__ void segment_reduce_cols(const int* __restrict__ ids,
                                     const T* __restrict__ vals,
                                     T* __restrict__ out, long long n, int d,
                                     int num_segments) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = sam::grid_stride();
-  for (long long base = sam::global_tid() - lane; base < n; base += stride) {
-    const long long i = base + lane;
-    int s = i < n ? ids[i] : -1;
-    if (s >= num_segments) s = -1;
-    const bool live = s >= 0;
-    const unsigned peers = __match_any_sync(kFull, live ? s : -1);
-    const bool leader = live && (__ffs(peers) - 1) == lane;
-    for (int c = 0; c < d; ++c) {
-      T x = live ? vals[i * d + c] : T(0);
-      x = reduce_peers(peers, x);
-      if (leader) atomicAdd(out + static_cast<long long>(s) * d + c, x);
-    }
-  }
+  sam::reduce_cols(ids, vals, out, n, d, num_segments);
 }
 
 // Long inputs take 4096-row tiles (fewer, fuller flushes), shorter ones

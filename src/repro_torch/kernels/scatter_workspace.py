@@ -2,14 +2,22 @@
 
 Replaces ``repro/kernels/scatter_workspace.py::scatter_workspace``. The
 TPU kernel is a one-hot MXU product into a VMEM-resident workspace; the
-CUDA kernel (``csrc/scatter_workspace.cu``) has each row add itself into
-its slot of a device-memory workspace with ``atomicAdd``, so there is no
-slot limit.
+CUDA kernel (``csrc/scatter_workspace.cu``) accumulates into a
+device-memory workspace, so there is no slot limit.
 
-It is memory-bound on the card: the ids and the payload are read once and
-the workspace written once, and atomics on a hot slot serialize in L2.
-The kernel skips rows aimed at the dropped padding slot instead of adding
-them to it, which spares every padding row's atomic on one address.
+It is memory-bound on the card: the ids and the in-range payload are read
+once and the workspace written once, and atomics on a hot slot serialize
+in L2. So a long input runs in tiles: a block takes a run of consecutive
+rows and keeps a window of slots in shared memory across its tiles, adds
+each row there, and sends each touched slot to the workspace with one
+atomic when the window moves; the runs of keys the engine produces (an
+expert's slots repeated under its inner loop, a token's row of an FFN)
+thus cost one global atomic a slot a run instead of one a row. A tile
+whose ids spread wider than the window, and a short input, add a row a
+thread, a warp's rows of one id summed before one atomic. Rows aimed at
+the dropped padding slot are skipped before their values are read.
+Two float32 output columns go out as one vector atomic. See the source's
+header for the design.
 
 Layout (as in the reference):
   ids  : (N,) int32 in [0, num_slots]   (num_slots == dropped pad slot)
@@ -65,6 +73,8 @@ def scatter_workspace(ids: torch.Tensor, cols: torch.Tensor, *,
     acc = _build.acc_dtype(cols.dtype, "scatter_workspace")
     ids = ids.to(torch.int32).contiguous()
     cols = cols.to(acc).contiguous()
+    if cols.data_ptr() % 16:    # the float2 loads want aligned rows
+        cols = cols.clone()
     n, c = cols.shape
     out = torch.zeros((num_slots, 2 if mul_pair else c), dtype=acc,
                       device=cols.device)

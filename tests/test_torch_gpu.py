@@ -59,24 +59,81 @@ def cuda():
     return torch.device("cuda")
 
 
+def _workspace_ids(kind, n, g):
+    """Ids of ``kind`` for ``test_scatter_workspace_equals_plain`` and
+    their slot count. Every kind also aims rows at the dropped slot."""
+    if kind in ("random", "sorted"):
+        slots = 5000
+        ids = torch.randint(0, slots + 1, (n,), generator=g,
+                            dtype=torch.int32)
+        if kind == "sorted":
+            ids = torch.sort(ids).values
+        return ids, slots
+    if kind == "runs":
+        # a model block's down stage: under each (e, c) bucket the ids of
+        # its 512 slots repeated under 7 values of f, then 300 dropped rows
+        # between one bucket and the next
+        buckets, width, reps, gap = 24, 512, 7, 300
+        slots = buckets * width
+        per = width * reps + gap
+        r = torch.arange(n) % (buckets * per)
+        b, off = r // per, r % per
+        ids = torch.where(off < width * reps, b * width + off % width, slots)
+        return ids.to(torch.int32), slots
+    if kind == "hot":
+        # sorted ids and one slot whose run crosses many tiles
+        slots = 3000
+        ids = torch.sort(torch.randint(0, slots + 1, (n,), generator=g,
+                                       dtype=torch.int32)).values
+        hot = min(n // 3, 600_000)
+        ids[n // 3:n // 3 + hot] = 1234
+        return ids, slots
+    # "wide": ids spread over 2^20 slots, wider than any window, with runs
+    # of one id among them
+    slots = 1 << 20
+    ids = torch.randint(-2, slots + 3, (n,), generator=g, dtype=torch.int32)
+    ids[1000:30_000] = 5
+    ids[n // 2:n // 2 + 9000] = slots - 1
+    return ids, slots
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mul_pair", [False, True])
-def test_scatter_workspace_equals_plain(cuda, mul_pair):
+@pytest.mark.parametrize("c,dtype", [(2, torch.float32),
+                                     ("mul_pair", torch.float32),
+                                     (1, torch.float32), (3, torch.float32),
+                                     (5, torch.float32),
+                                     (2, torch.float64),
+                                     ("mul_pair", torch.float64),
+                                     ("mul_pair", torch.float16),
+                                     (1, torch.float16)])
+@pytest.mark.parametrize("ids_kind", ["random", "sorted", "runs", "hot",
+                                      "wide"])
+@pytest.mark.parametrize("n", [100_000, (1 << 18) + 1, (1 << 22) + 5,
+                               (1 << 24) + 4097])
+def test_scatter_workspace_equals_plain(cuda, c, dtype, ids_kind, n):
+    """Up to 2^18 rows the kernel runs a row a thread; above, tiles of
+    1024 rows, and above 2^22 rows a block keeps its shared-memory window
+    over several tiles. Random ids over 5000 slots
+    fit the window of one float32 column, not of two or three; sorted ids,
+    a model block's bucketed runs (dropped rows between the buckets) and
+    one hot slot across tiles take the window; ids over 2^20 slots, the
+    row path. mul_pair rows carry NaN where they are masked. Integer
+    values, so the sums are exact in any order."""
     g = torch.Generator().manual_seed(1)
-    n, slots = 100_000, 5000
-    ids = torch.randint(0, slots + 1, (n,), generator=g, dtype=torch.int32)
-    cols = torch.randint(-4, 5, (n, 3 if mul_pair else 2), generator=g
-                         ).float()
+    mul_pair = c == "mul_pair"
+    ids, slots = _workspace_ids(ids_kind, n, g)
+    cols = torch.randint(-4, 5, (n, 3 if mul_pair else c), generator=g
+                         ).to(dtype)
     if mul_pair:
         cols[::7, 0] = float("nan")            # garbage at masked rows
         cols[::7, 2] = 0.0
+    ids, cols = ids.to(cuda), cols.to(cuda)
     before = scatter_workspace.launches
-    got = scatter_workspace(ids.to(cuda), cols.to(cuda), num_slots=slots,
-                            mul_pair=mul_pair)
+    got = scatter_workspace(ids, cols, num_slots=slots, mul_pair=mul_pair)
     assert scatter_workspace.launches == before + 1
     want = scatter_workspace_plain(ids, cols, num_slots=slots,
                                    mul_pair=mul_pair)
-    assert torch.equal(got.cpu(), want)
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 @pytest.mark.gpu

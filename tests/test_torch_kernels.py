@@ -46,18 +46,28 @@ def same(ref, got, msg=""):
 
 # -- scatter_workspace ------------------------------------------------------
 
-SW_CASES = [  # (n, num_slots, mul_pair, pad_share)
+SW_CASES = [  # (n, num_slots, mul_pair, pad_share or "runs")
     (1, 1, False, 0.0), (1023, 37, False, 0.2), (1025, 37, True, 0.2),
     (700, 5, True, 1.0),                   # every row aims at the pad slot
     (64, 64, False, 0.0),
+    # a model block's down stage: each bucket's 16 slots repeated under 3
+    # values of an outer index, dropped rows between the buckets
+    (1100, 48, True, "runs"),
 ]
 
 
 @pytest.mark.parametrize("n,slots,mul_pair,pad", SW_CASES)
 def test_scatter_workspace_plain_equals_pallas(n, slots, mul_pair, pad):
     rng = np.random.default_rng(n + slots)
-    ids = rng.integers(0, slots, n).astype(np.int32)
-    ids[rng.random(n) < pad] = slots
+    if pad == "runs":
+        width, reps, gap = 16, 3, 20
+        r = np.arange(n) % (slots // width * (width * reps + gap))
+        bucket, off = np.divmod(r, width * reps + gap)
+        ids = np.where(off < width * reps, bucket * width + off % width,
+                       slots).astype(np.int32)
+    else:
+        ids = rng.integers(0, slots, n).astype(np.int32)
+        ids[rng.random(n) < pad] = slots
     c = 3 if mul_pair else 2
     cols = rng.integers(-4, 5, (n, c)).astype(np.float32)
     if mul_pair:
