@@ -157,6 +157,27 @@ Phases:
       --mem-budget B --workers 2`` in a subprocess, B a third of the
       request's untiled estimate, must exit 0 and print its OUT-OF-CORE and
       DISTRIBUTED lines;
+  (u) after (s)'s and (t)'s profiles, before (q): the language-model
+      serving path (models.model, launch.serve.generate), no hand-written
+      kernel on it. (1) qwen3-0.6b at its full configuration (28 layers,
+      parameters from init_params on the card, bfloat16 compute):
+      generate with batch 4, prompt 32 and 16 greedy tokens, first and
+      warm, then its prefill and each decode step timed one by one
+      (every logit finite), one decode step profiled (the card's idle
+      share), the model FLOP rate 2·N_active·B over the median decode
+      step against 989 TFLOP/s, the peak above what was live, and
+      ``serve.main(["--arch", "qwen3-0.6b", ...])`` once; in float32, a
+      cached prefill and 16 decode steps must equal forward over the 48
+      tokens, and the card's forward at 2 of the 28 layers the CPU's,
+      within U_TOL. (2) paligemma-3b (2 of 18 layers), musicgen-large (2
+      of 48), moonshot-v1-16b-a3b (2 of 48: one dense, one MoE),
+      deepseek-v3-671b (1 of 61, first_dense_layers=1: one MLA layer, an
+      empty MoE stack), xlstm-125m (all 12), zamba2-2.7b (6 of 54: one
+      mamba group and the shared block), at full width: forward on (4, 32)
+      and two decode steps (finite; ms and peak), the card's float32
+      forward on one row against the CPU's, and for deepseek, xlstm and
+      zamba2 a cached prefill and two decode steps against forward,
+      within U_TOL;
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -173,13 +194,14 @@ sddmm_bsr and bsr_attention must have launched only their tensor-core
 kernels (the launches by route are printed). They are zeroed
 before (k), (k2), (l) and (l2) too: coo_to_levels and a reduce kernel must have
 launched in (k), and no call of (k) may regrow its recorded capacities.
+They are zeroed before (u) and read after it (no kernel launches there).
 They are zeroed before (s)'s first forward and read after it, and before
 the call of each of (t)'s MoEBlock and two compile_moe_block builds and
 read after it; their launches join the kernels line's.
 fused_imr's counter is zeroed before its own entry call in (f) and read
 after it. Any mismatch or error exits non-zero. The last lines printed are
-the ``kernels`` JSON line (with ``bound_ms`` under the rule at
-``PRODUCT_OPS_PER_S`` and ``fp32_bound_ms`` beside it), the card's name
+the ``kernels`` JSON line (with ``bound_ms`` from ``kernel_roofline``
+and ``fp32_bound_ms`` beside it), the card's name
 and power limit from nvidia-smi, and the ``ok`` JSON line.
 """
 from __future__ import annotations
@@ -198,17 +220,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 20260
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory bandwidth (data sheet)
-FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 on the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
-# A kernel's bound is max(bytes / HBM rate, operations / rate): for a
-# matrix product on float32 data the rate is three TF32 passes (3xTF32
-# keeps the float32 tolerances below; one pass does not), for bfloat16 data
-# the bf16 rate, and for anything else the FP32 rate. fp32_bound_ms keeps
-# the earlier rule (every operation at the FP32 rate) beside it.
-PRODUCT_OPS_PER_S = {"float32": TF32_OPS_PER_S / 3,
-                     "bfloat16": BF16_OPS_PER_S}
+# A kernel's bound is repro_torch.roofline.analysis.kernel_roofline:
+# max(bytes / HBM rate, operations / rate) at the H100's data-sheet rates.
+# For a matrix product on float32 data the rate is three TF32 passes
+# (3xTF32 keeps the float32 tolerances below; one pass does not), for
+# bfloat16 data the bf16 rate, and for anything else the FP32 rate.
+# fp32_bound_ms keeps the earlier rule (every operation at the FP32 rate)
+# beside it.
 # (i) against its float64 oracle: float32 scores and float32 sums over up
 # to 4096 keys a row leave errors near 1e-6; 1e-4 leaves room for that
 ATTN_TOL = 1e-4
@@ -216,6 +234,25 @@ ATTN_TOL = 1e-4
 # float32 differs only in summation order (the tolerance of the
 # reference's own kernel tests); bfloat16 also rounds the output once
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# (u): float32 logits on the card against float32 logits computed another
+# way (the CPU, or a cached prefill and decode steps against one forward),
+# relative to the largest: sums of up to 18,432 float32 terms in other
+# orders and splits, through up to 28 layers. The bfloat16 runs are held
+# to finite logits here; their agreement with the reference is held on the
+# CPU (tests/test_torch_lm_model.py, 3e-2 of the largest logit).
+U_TOL = 1e-4
+# (u)(2): (arch, layers kept, other fields replaced, whether a cached
+# prefill and decode must equal the whole-sequence forward: not for the
+# MoE, whose capacity drops depend on the token count, nor for the stubs,
+# whose patches come with every step)
+U_FAMILIES = [
+    ("paligemma-3b", 2, {}, False),
+    ("musicgen-large", 2, {}, False),
+    ("moonshot-v1-16b-a3b", 2, {}, False),
+    ("deepseek-v3-671b", 1, {"first_dense_layers": 1}, True),
+    ("xlstm-125m", 12, {}, True),
+    ("zamba2-2.7b", 6, {}, True),
+]
 
 TABLE1 = [
     ("SpMV", "x(i) = B(i,j) * c(j)", "ij", {"B": "cc", "c": "c"}),
@@ -501,6 +538,10 @@ def main() -> int:
                                                 coo_to_levels_plain)
     from repro_torch.kernels.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
     from repro_torch.kernels.spmm_bsr import spmm_bsr, spmm_bsr_plain
+    from repro_torch.roofline.analysis import (H100_3XTF32_FLOPS,
+                                               H100_BF16_FLOPS,
+                                               H100_FP32_FLOPS,
+                                               kernel_roofline)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1618,17 +1659,19 @@ def main() -> int:
 
     def report(name, launches, kernel, plain, library, nbytes, nops, where,
                tol=0.0, flat=lambda out: out, per_call=1,
-               rate=FP32_OPS_PER_S, check=None):
+               rate=H100_FP32_FLOPS, check=None):
         """Hold a kernel against its plain version and time both; ``rate``
-        is the operation rate of its bound (``PRODUCT_OPS_PER_S`` for the
-        matrix products). ``check(kernel_out, plain_out)``, where given,
-        replaces the elementwise tolerance and returns the max abs error."""
+        is the operation rate of its bound (``H100_3XTF32_FLOPS`` for the
+        float32 matrix products). ``check(kernel_out, plain_out)``, where
+        given, replaces the elementwise tolerance and returns the max abs
+        error."""
         if check is None:
             err = held(name, flat(kernel()), flat(plain()), where, tol)
         else:
             err = check(kernel(), plain())
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = nops / rate
+        roof = kernel_roofline(nops, nbytes, peak_flops=rate)
+        fp32_roof = kernel_roofline(nops, nbytes, peak_flops=H100_FP32_FLOPS)
+        t_bytes, t_ops = roof["t_memory"], roof["t_compute"]
         row = {"name": name, "route": "cuda",
                "source": KERNEL_META[name][0],
                "replaces": KERNEL_META[name][1], "launches": launches,
@@ -1636,7 +1679,7 @@ def main() -> int:
                "plain_ms": event_ms(plain), "bound_ms": max(t_bytes, t_ops)
                * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else
                "operations", "library_ms": timed_library(name, library),
-               "fp32_bound_ms": max(t_bytes, nops / FP32_OPS_PER_S) * 1e3,
+               "fp32_bound_ms": max(t_bytes, fp32_roof["t_compute"]) * 1e3,
                "shape": where, "bytes": nbytes}
         # CUDA events time the wrapper call as the engine pays it, host
         # launch gaps included; the profiler splits out device time
@@ -2066,7 +2109,7 @@ def main() -> int:
         2 * n_live * bsz * bsz * cc.shape[1],
         f"(g) n_brow={n_brow} max_nnz={bm.shape[1]} nnzb={nnzb} bs={bsz} "
         f"K={cc.shape[0]} N={cc.shape[1]}",
-        rate=PRODUCT_OPS_PER_S["float32"]))
+        rate=H100_3XTF32_FLOPS))
     del bsr_w
     bm32, ci32 = (x.to(torch.int32).contiguous() for x in (bm, ci))
     out_cc = torch.empty((n_brow * bsz, cc.shape[1]), device="cuda")
@@ -2127,7 +2170,7 @@ def main() -> int:
         2 * nnzb * 4 + (sa.numel() + sb.numel() + nnzb * sbs * sbs) * 4,
         2 * nnzb * sbs * sbs * sa.shape[1],
         f"(h) nnzb={nnzb} bs={sbs} K={sa.shape[1]}",
-        rate=PRODUCT_OPS_PER_S["float32"]))
+        rate=H100_3XTF32_FLOPS))
 
     out_cc = torch.empty((nnzb, sbs, sbs), device="cuda")
     turns = paired_ms(
@@ -2190,7 +2233,7 @@ def main() -> int:
                 q_all[None], k_all[None], v_all[None], attn_mask=dense_mask),
             4 * q_all.numel() * 4 + kv_all.numel() * 4, 4 * hd * pairs,
             f"(j) BH={heads} S={s_len} D={hd} causal={causal}",
-            tol=KERNEL_TOL["float32"], rate=PRODUCT_OPS_PER_S["float32"])
+            tol=KERNEL_TOL["float32"], rate=H100_3XTF32_FLOPS)
         del dense_mask
         if not causal:
             kernels.append(row)
@@ -2236,12 +2279,14 @@ def main() -> int:
 
     dev_i, kern_i = profiled_device_ms(one_head, "bsr_attention")
     ops_i = 4 * hd * attention_pairs(kv_win, bs, bs, n_win, False)
+    bound_i = kernel_roofline(ops_i, 0, peak_flops=H100_3XTF32_FLOPS)
+    fp32_i = kernel_roofline(ops_i, 0, peak_flops=H100_FP32_FLOPS)
     log(f"[f] bsr_attention at (i) BH=1 S={qi_.shape[1]} D={qi_.shape[2]}: "
         f"ms {event_ms(one_head):.4f}, device " + (
             "not measured" if dev_i is None else
             f"{dev_i:.4f}, of it the kernel {kern_i:.4f}")
-        + f", bound_ms {ops_i / PRODUCT_OPS_PER_S['float32'] * 1e3:.4f} "
-        f"(fp32_bound_ms {ops_i / FP32_OPS_PER_S * 1e3:.4f})")
+        + f", bound_ms {bound_i['t_compute'] * 1e3:.4f} "
+        f"(fp32_bound_ms {fp32_i['t_compute'] * 1e3:.4f})")
 
     # (j) in bfloat16: the card's rate for a bf16 model's attention
     qb_all, kb_all, vb_all = (x.bfloat16() for x in (q_all, k_all, v_all))
@@ -2252,8 +2297,9 @@ def main() -> int:
                                            bq=bs, bkv=bs),
                  "(j) in bfloat16", KERNEL_TOL["bfloat16"])
     ops_j = 4 * hd * heads * attention_pairs(kv_win, bs, bs, n_win, False)
-    bound_b = max(ops_j / PRODUCT_OPS_PER_S["bfloat16"],
-                  4 * qb_all.numel() * 2 / HBM_BYTES_PER_S) * 1e3
+    roof_b = kernel_roofline(ops_j, 4 * qb_all.numel() * 2,
+                             peak_flops=H100_BF16_FLOPS)
+    bound_b = max(roof_b["t_compute"], roof_b["t_memory"]) * 1e3
     ms_b = event_ms(lambda: bsr_flash_attention(qb_all, kb_all, vb_all,
                                                 kv_all, bq=bs, bkv=bs))
     log(f"[f] bsr_attention at (j) in bfloat16, causal=False: ms "
@@ -2269,9 +2315,10 @@ def main() -> int:
         log(f"[f] {name} in bfloat16 at the same shape: max abs err {err}")
     bf_args = (bm, ci, bp.bfloat16(), cc.bfloat16())
     ops_g = 2 * n_live * bsz * bsz * cc.shape[1]
-    bound_g = max(ops_g / PRODUCT_OPS_PER_S["bfloat16"],
-                  (bp.numel() + cc.numel() + n_brow * bsz * cc.shape[1]) * 2
-                  / HBM_BYTES_PER_S) * 1e3
+    roof_g = kernel_roofline(
+        ops_g, (bp.numel() + cc.numel() + n_brow * bsz * cc.shape[1]) * 2,
+        peak_flops=H100_BF16_FLOPS)
+    bound_g = max(roof_g["t_compute"], roof_g["t_memory"]) * 1e3
     log(f"[f] spmm_bsr at (g) in bfloat16: ms "
         f"{event_ms(lambda: spmm_bsr(*bf_args)):.4f}, bound_ms "
         f"{bound_g:.4f} (bf16 rate)")
@@ -2345,6 +2392,237 @@ def main() -> int:
         log(f"[t]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
     del t_x, moe_p
     clear_program_cache()
+
+    # -- (u) the language-model serving path ---------------------------------
+    # before (q), after (s)'s and (t)'s profiles: a profiler session that
+    # spans (q)'s server threads leaves later sessions short of device events
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import model as lm
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.train.train_step import (make_prefill_step,
+                                              make_serve_step)
+
+    torch.cuda.empty_cache()
+    u_start = time.perf_counter()
+    kops.reset_launch_counts()          # the LM path launches none of them
+
+    def rel_err(got, want):
+        """max |got - want| over max |want|, both finite."""
+        got, want = got.double().cpu(), want.double().cpu()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"(u) shape {tuple(got.shape)} against "
+                                 f"{tuple(want.shape)}, or not finite")
+        return float((got - want).abs().max() / want.abs().max())
+
+    def held_lm(label, got, want):
+        err = rel_err(got, want)
+        if err > U_TOL:
+            raise AssertionError(f"(u) {label}: rel err {err} > {U_TOL}")
+        return err
+
+    def finite(label, t):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"(u) {label}: a logit is not finite")
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def cached_equals_forward(label, cfg32, params, seq, n_pre):
+        """float32 compute and caches: a cached prefill of ``n_pre`` tokens
+        of ``seq`` and one decode step a further token, each step's logits
+        against ``forward`` over the whole of ``seq``; returns the
+        largest rel err."""
+        full, _ = lm.forward(cfg32, params, {"tokens": seq})
+        caches = lm.init_caches(cfg32, seq.shape[0], seq.shape[1] + 8,
+                                dtype=torch.float32)
+        pre, caches = lm.forward(cfg32, params, {"tokens": seq[:, :n_pre]},
+                                 caches)
+        errs = [held_lm(f"{label} prefill", pre, full[:, :n_pre])]
+        for i in range(n_pre, seq.shape[1]):
+            got, caches = lm.decode_step(cfg32, params, caches,
+                                         {"tokens": seq[:, i:i + 1]})
+            errs.append(held_lm(f"{label} decode at {i}", got, full[:, i]))
+        return max(errs)
+
+    def card_equals_cpu(label, cfg32, params, batch):
+        """The card's float32 forward against the CPU's on the same
+        parameters (copied to the host); returns the rel err."""
+        got, _ = lm.forward(cfg32, params, batch)
+        on_host = lm.tree_map(lambda t: t.cpu(), params)
+        want, _ = lm.forward(cfg32, on_host,
+                             {k: v.cpu() for k, v in batch.items()})
+        return held_lm(f"{label} card against the CPU", got, want)
+
+    # (u)(1) qwen3-0.6b at its full configuration: generate with the
+    # reference CLI's defaults, step by step, then serve --arch
+    u_cfg = get_config("qwen3-0.6b")
+    u_b, u_p, u_g = 4, 32, 16
+    u_max = u_p + u_g + 8
+    u_params, init_ms = synced_ms(lambda: lm.init_params(
+        u_cfg, torch.Generator(device="cuda").manual_seed(SEED)))
+    u_prompts = torch.randint(
+        0, u_cfg.vocab, (u_b, u_p), dtype=torch.int32, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    seqs, gen_first_ms = synced_ms(lambda: lm_serve.generate(
+        u_cfg, u_params, u_prompts, u_g, u_max))
+    torch.cuda.synchronize()
+    u_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seqs2, gen_warm_ms = synced_ms(lambda: lm_serve.generate(
+        u_cfg, u_params, u_prompts, u_g, u_max))
+    u_peak = torch.cuda.max_memory_allocated() - u_base
+    if (seqs.shape != (u_b, u_p + u_g)
+            or not torch.equal(seqs[:, :u_p], u_prompts)
+            or int(seqs.min()) < 0 or int(seqs.max()) >= u_cfg.vocab):
+        raise AssertionError(f"(u) generate gave {tuple(seqs.shape)} "
+                             f"tokens in [{int(seqs.min())}, "
+                             f"{int(seqs.max())}]")
+    # the steps generate takes, timed one by one on the same inputs
+    prefill, step = make_prefill_step(u_cfg), make_serve_step(u_cfg)
+    caches = lm.init_caches(u_cfg, u_b, u_max)
+    (logits, caches), prefill_ms = synced_ms(
+        lambda: prefill(u_params, caches, {"tokens": u_prompts}))
+    finite("prefill", logits)
+    decode_ms = []
+    for i in range(u_g):
+        tok = torch.argmax(logits, dim=-1)[:, None].int()
+        (logits, caches), ms = synced_ms(
+            lambda: step(u_params, caches, {"tokens": tok}))
+        finite(f"decode step {i}", logits)
+        decode_ms.append(ms)
+    tok = torch.argmax(logits, dim=-1)[:, None].int()
+    u_prof = device_profile(lambda: step(u_params, caches, {"tokens": tok}))
+    u_host = host_profile(lambda: step(u_params, caches, {"tokens": tok}),
+                          top=8)
+    dec_med = statistics.median(decode_ms)
+    u_flops = model_flops(u_cfg.n_active_params(), u_b, "decode")
+    u_rate = u_flops / (dec_med / 1e3)
+    tok_s = u_b * u_g / (gen_warm_ms / 1e3)
+    del caches, logits
+    log(f"[u] qwen3-0.6b full ({u_cfg.n_layers} layers, d_model "
+        f"{u_cfg.d_model}, vocab {u_cfg.vocab}, {u_cfg.n_params()} params "
+        f"in float32, bfloat16 compute): init {init_ms:.1f} ms; generate "
+        f"batch {u_b} prompt {u_p} gen {u_g} greedy: first {gen_first_ms:.1f}"
+        f" ms, warm {gen_warm_ms:.1f} ms ({tok_s:.1f} tokens/s), the same "
+        f"tokens warm: {bool(torch.equal(seqs, seqs2))}; peak allocated "
+        f"{u_peak} bytes above the {u_base} live")
+    log(f"[u] prefill {prefill_ms:.3f} ms; decode ms a token: median "
+        f"{dec_med:.3f} (min {min(decode_ms):.3f}, max "
+        f"{max(decode_ms):.3f} over {u_g} steps); model FLOP rate "
+        f"{u_rate / 1e12:.4f} TFLOP/s ({u_flops:.4g} FLOP a step, "
+        f"2 x {u_cfg.n_active_params()} x {u_b}), "
+        f"{u_rate / H100_BF16_FLOPS:.6f} of 989 TFLOP/s")
+    log(f"[u] one profiled decode step: {u_prof['wall_ms']:.3f} ms with "
+        f"{u_prof['device_busy_ms']:.3f} ms of kernels on the card, idle "
+        f"share " + ("not measured" if u_prof["idle_share"] is None
+                     else f"{u_prof['idle_share']:.4f}"))
+    for row in u_prof["top_kernels"][:4]:
+        log(f"[u]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+    log("[u] one decode step's host (cProfile cumulative ms) " + ", ".join(
+        f"{r['name']} {r['cum_ms']:.1f}" for r in u_host))
+    cli_seqs, cli_ms = synced_ms(lambda: lm_serve.main(
+        ["--arch", "qwen3-0.6b", "--batch", "4", "--prompt-len", "32",
+         "--gen", "16"]))
+    if cli_seqs.shape != (4, 48):
+        raise AssertionError(f"(u) serve --arch gave {cli_seqs.shape}")
+    u32 = dataclasses.replace(u_cfg, compute_dtype="float32")
+    err_dec = cached_equals_forward("qwen3-0.6b", u32, u_params, seqs, u_p)
+    two = dict(u_params, layers=lm.tree_map(lambda a: a[:2],
+                                            u_params["layers"]))
+    err_cpu = card_equals_cpu("qwen3-0.6b, 2 layers",
+                              dataclasses.replace(u32, n_layers=2), two,
+                              {"tokens": seqs[:, :u_p]})
+    log(f"[u] serve --arch qwen3-0.6b --batch 4 --prompt-len 32 --gen 16: "
+        f"{cli_ms:.1f} ms, init included; float32 compute: prefill of "
+        f"{u_p} + {u_g} decode steps against forward over {u_p + u_g} "
+        f"tokens rel err {err_dec:.3e}, the card's forward at 2 of 28 "
+        f"layers against the CPU's {err_cpu:.3e} (tolerance {U_TOL})")
+    workloads["LM serving qwen3-0.6b (u)"] = {
+        "warm_ms": gen_warm_ms, "first_ms": gen_first_ms,
+        "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+        "decode_median_ms": dec_med, "tokens_per_s": tok_s,
+        "peak_bytes": u_peak, "profile": u_prof, "host_profile": u_host,
+        "model_flops_per_s": u_rate,
+        "bf16_peak_share": u_rate / H100_BF16_FLOPS,
+        "rel_err_cached": err_dec, "rel_err_cpu": err_cpu,
+        "cli_ms": cli_ms}
+    del u_params, two, seqs, seqs2, cli_seqs
+    torch.cuda.empty_cache()
+
+    # (u)(2) one architecture of each other family at full width, depth cut
+    for arch, n_layers, extra, equal_decode in U_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                  **extra)
+        params = lm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        rng = np.random.default_rng(SEED)
+        seq = torch.tensor(rng.integers(0, cfg.vocab, (u_b, u_p + 2)),
+                           dtype=torch.int32, device="cuda")
+        fixed, prefix = {}, 0
+        if cfg.frontend == "siglip_stub":
+            fixed["patches"] = torch.tensor(
+                rng.normal(size=(u_b, cfg.n_patches, cfg.patch_dim)),
+                dtype=torch.float32, device="cuda")
+            prefix = cfg.n_patches
+        if cfg.frontend == "encodec_stub":
+            feed = torch.tensor(rng.normal(size=(u_b, u_p + 2, cfg.d_model)),
+                                dtype=torch.float32, device="cuda")
+            key = "frames"
+        else:
+            feed, key = seq, "tokens"
+        batch = dict(fixed, **{key: feed[:, :u_p]})
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (logits, _), fwd_ms = synced_ms(
+            lambda: lm.forward(cfg, params, batch))
+        finite(f"{arch} forward", logits)
+        # two decode steps behind a cached prefill; the stubs take their
+        # patches with every step, as the reference's
+        caches = lm.init_caches(cfg, u_b, u_p + 8 + 3 * (prefix + 1))
+        (logits, caches), pre_ms = synced_ms(
+            lambda: lm.forward(cfg, params, batch, caches))
+        finite(f"{arch} prefill", logits)
+        step_ms = []
+        for i in (u_p, u_p + 1):
+            one = dict(fixed, **{key: feed[:, i:i + 1]})
+            (logits, caches), ms = synced_ms(
+                lambda: lm.decode_step(cfg, params, caches, one))
+            finite(f"{arch} decode", logits)
+            step_ms.append(ms)
+        peak = torch.cuda.max_memory_allocated() - base
+        del caches, logits
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        err_cpu = card_equals_cpu(
+            arch, cfg32, params,
+            {k: v[:1] for k, v in batch.items()})  # one row on the host
+        err_dec = (cached_equals_forward(arch, cfg32, params, seq, u_p)
+                   if equal_decode else None)
+        log(f"[u] {arch}, {n_layers} of {get_config(arch).n_layers} layers"
+            + (f" ({extra})" if extra else "") + f", {cfg.n_params()} "
+            f"params: forward (4, {u_p}) {fwd_ms:.1f} ms, cached prefill "
+            f"{pre_ms:.1f} ms, decode {step_ms[0]:.1f} and {step_ms[1]:.1f}"
+            f" ms, peak {peak} bytes above the {base} live; float32: card "
+            f"against CPU rel err {err_cpu:.3e}"
+            + ("" if err_dec is None else
+               f", prefill + 2 decode steps against forward {err_dec:.3e}")
+            + f" (tolerance {U_TOL})")
+        workloads[f"LM {arch} (u)"] = {
+            "first_ms": fwd_ms, "prefill_ms": pre_ms, "decode_ms": step_ms,
+            "peak_bytes": peak, "rel_err_cpu": err_cpu,
+            "rel_err_cached": err_dec}
+        del params, batch, feed, seq, fixed
+        torch.cuda.empty_cache()
+    per_phase["u"] = kops.launch_counts()
+    log(f"[u] launches {per_phase['u']} (no hand-written kernel lies on "
+        f"the LM path); phase {time.perf_counter() - u_start:.1f} s")
 
     # -- (q) serving, threaded, on the card ---------------------------------
     # last of the paths, after (f): a torch.profiler session that spans
@@ -2650,7 +2928,8 @@ def main() -> int:
     # line
     for row in kernels:
         row["launches"] += sum(per_phase[t][row["name"]]
-                               for t in ("s", "t2", "t3", "t3s", "q", "r"))
+                               for t in ("s", "t2", "t3", "t3s", "u", "q",
+                                         "r"))
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

@@ -1,1 +1,2 @@
-"""Launchers of the port: the host mesh and ``serve --sam``."""
+"""Launchers of the port: the host mesh and ``serve`` (the language-model
+mode and ``--sam``)."""

@@ -1,5 +1,10 @@
-"""Serving launcher of the port: batched sparse-expression serving through
-the compiled engine (``--sam``), on the card by default.
+"""Serving launcher of the port: batched prefill + decode of a language
+model with per-family caches (the default mode), and batched
+sparse-expression serving through the compiled engine (``--sam``), on the
+card by default.
+
+    python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \
+        --batch 4 --prompt-len 32 --gen 16
 
     # sparse-expression serving: compile once, dispatch batches through
     # the continuous-batching server
@@ -23,23 +28,89 @@ the compiled engine (``--sam``), on the card by default.
         --mem-budget 24MB --workers 2 --batch 2 --reps 2
 
 Run from the repository root with ``PYTHONPATH=src``. ``--device cpu``
-runs the plain PyTorch versions on the CPU. The reference's language-model
-mode (no ``--sam``) is not ported (ROADMAP.md, still to port #8), and
-``--devices`` (lanes over several GPUs) is refused by ``compile_expr``
-(ROADMAP.md, still to port #5).
+runs on the CPU (the plain PyTorch versions of the kernels); without it
+and without a GPU every mode raises. ``--devices`` (lanes over several
+GPUs) is refused by ``compile_expr`` (ROADMAP.md, still to port #5).
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
 
+from ..configs import get_config, list_archs
+from ..core import coord_ops as co
 from ..core.einsum import parse
 from ..core.program import parse_program
 from ..core.schedule import Format, Schedule
 from ..core.torch_backend import compile_expr, compile_program
+from ..models.model import init_caches, init_params
+from ..train.train_step import make_prefill_step, make_serve_step
 
-_LM_SLICE = "ROADMAP.md, still to port #8: the seed's dense LM stack"
+
+def generate(cfg, params, prompts, gen_len: int, max_seq: int,
+             temperature: float = 0.0, seed: int = 0):
+    """prompts: (B, P) int32 on the parameters' device. Greedy (the
+    default) or temperature sampling, batched; returns (B, P + gen_len)
+    int32 tokens.
+
+    Like the reference's, it serves token-input architectures only (the
+    stub frontends take patches or frames a step). Sampling draws from a
+    ``torch.Generator`` seeded with ``seed``, so its tokens differ from
+    the reference's ``jax.random.categorical`` draws; greedy decoding
+    takes the first maximum, as ``jnp.argmax`` does.
+    """
+    if cfg.frontend is not None:
+        raise ValueError(f"{cfg.name} takes {cfg.frontend} inputs; "
+                         f"generate serves token-input architectures")
+    b, plen = prompts.shape
+    dev = prompts.device
+    caches = init_caches(cfg, b, max_seq, device=dev)
+    prefill = make_prefill_step(cfg)
+    step = make_serve_step(cfg)
+
+    logits, caches = prefill(params, caches, {"tokens": prompts})
+    out = [prompts]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def pick(logits):
+        if temperature > 0:
+            probs = torch.softmax(logits.float() / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=gen).int()
+        return torch.argmax(logits, dim=-1)[:, None].int()
+
+    tok = pick(logits)
+    for _ in range(gen_len):
+        out.append(tok)
+        logits, caches = step(params, caches, {"tokens": tok})
+        tok = pick(logits)
+    return torch.cat(out, dim=1)
+
+
+def serve_lm(arch: str, *, reduced: bool = False, batch: int = 4,
+             prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
+             device=None, log=print):
+    """The language-model mode: parameters from seed 0 and prompts from
+    seed 1 on ``device`` (CUDA unless the caller names one), then
+    ``generate`` with room for 8 more tokens. Returns the sequences."""
+    dev = co.resolve_device(device)
+    cfg = get_config(arch, reduced=reduced)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(
+        0, cfg.vocab, (batch, prompt_len), dtype=torch.int32, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    t0 = time.perf_counter()
+    seqs = generate(cfg, params, prompts, gen, prompt_len + gen + 8,
+                    temperature)
+    seqs = seqs.cpu()          # waits for the card
+    dt = time.perf_counter() - t0
+    log(f"[serve] {arch}: batch={batch} prompt={prompt_len} gen={gen} on "
+        f"{dev.type}: {dt:.2f}s  ({batch * gen / dt:.1f} tok/s, first "
+        f"call)")
+    log("[serve] first sequence:", seqs[0, :24].tolist(), "...")
+    return seqs
 
 
 def _parse_kv(text: str, cast=str):
@@ -271,11 +342,16 @@ def serve_program(text: str, formats, dims, *, batch: int = 8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list_archs(), default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--sam", default=None, metavar="EXPR",
-                    help="serve a sparse expression; ';'-separated "
-                         "assignments serve as a PROGRAM with "
-                         "producer→consumer fusion, e.g. "
+                    help="serve a sparse expression instead of an LM; "
+                         "';'-separated assignments serve as a PROGRAM "
+                         "with producer→consumer fusion, e.g. "
                          "\"T(i,j) = B(i,k) * C(k,j); "
                          "A(i,j) = T(i,k) * E(k,j)\"")
     ap.add_argument("--sam-order", default=None,
@@ -308,14 +384,14 @@ def main(argv=None):
                          "exceeds it stream through the out-of-core "
                          "tiled engine automatically (docs/TILING.md)")
     ap.add_argument("--device", default="cuda",
-                    help="where the engines run: cuda (the default) or "
-                         "cpu (the plain PyTorch versions)")
+                    help="where the model or the engines run: cuda (the "
+                         "default) or cpu (the plain PyTorch versions)")
     args = ap.parse_args(argv)
 
     if not args.sam:
-        raise NotImplementedError(
-            f"the language-model serving mode is not ported yet "
-            f"({_LM_SLICE}); serve a sparse expression with --sam")
+        return serve_lm(args.arch, reduced=args.reduced, batch=args.batch,
+                        prompt_len=args.prompt_len, gen=args.gen,
+                        temperature=args.temperature, device=args.device)
 
     if ";" in args.sam:
         # multi-expression program serving (producer→consumer fusion)

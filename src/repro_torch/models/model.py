@@ -1,0 +1,409 @@
+"""Unified LM assembly for every registered architecture family.
+
+Functional: ``init_params(cfg, gen)`` builds the parameter tree;
+``forward`` runs a prefill (or a whole sequence); ``decode_step`` runs
+one cached token. Layer stacks carry a leading L axis, as the
+reference's do, so the two trees line up.
+
+Families:
+  dense / vlm / audio : pre-norm attention + gated MLP
+  moe                 : first_dense_layers dense, then MoE (SAM dispatch)
+  ssm (xlstm)         : mLSTM blocks with sLSTM at cfg.slstm_layers
+  hybrid (zamba2)     : mamba2 stack; ONE shared attention+MLP block
+                        applied every cfg.attn_every layers (weight reuse)
+
+A port of ``repro.models.model``'s serving half for one device. The
+reference's ``lax.scan`` over a stack is a loop over its L axis, each
+layer's cache sliced from the stacked caches and the new ones stacked
+back. ``cfg.unroll_scan`` unrolls the reference's scan for its roofline
+probes; an eager loop has nothing to unroll, so the port ignores it.
+Activation sharding (the reference's ``shard_activation``) and the
+expert-parallel policy come with the distributed half of the LM stack;
+``loss_fn`` and rematerialization (``remat`` other than None/"none")
+with the training slice. Token ids outside the vocabulary raise
+``ValueError`` where the reference's gather would clamp them.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import coord_ops as co
+from .attention import attention, init_attention, init_kv_cache
+from .common import (apply_mlp, dense_init, device_of, init_embedding,
+                     init_mlp, init_rms, rms_norm)
+from .mamba2 import init_mamba2, init_mamba2_cache, mamba2
+from .mla import init_mla, init_mla_cache, mla_attention
+from .moe import apply_moe, init_moe
+from .xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
+                    init_slstm_cache, mlstm, slstm)
+
+__all__ = ["init_params", "embed_inputs", "forward", "init_caches",
+           "decode_step", "tree_map", "tree_stack"]
+
+_TRAIN_SLICE = ("rematerialization comes with the training slice "
+                "(ROADMAP.md, still to port #8)")
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the tensors of nested dicts and lists (and of the trees
+    of the same structure in ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_stack(trees):
+    """A list of trees of one structure as one tree, each tensor stacked
+    on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _stack_len(stack) -> int:
+    while isinstance(stack, (dict, list)):
+        stack = next(iter(stack.values())) if isinstance(stack, dict) \
+            else stack[0]
+    return stack.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _stacked(init_fn, gen, n: int):
+    """``n`` layers from ``init_fn``, stacked on a leading layer axis; for
+    ``n == 0`` the empty stack of one layer's shapes."""
+    if n:
+        return tree_stack([init_fn(gen) for _ in range(n)])
+    dev = device_of(gen)
+    return tree_map(lambda t: torch.empty((0,) + tuple(t.shape),
+                                          dtype=t.dtype, device=dev),
+                    init_fn(None))
+
+
+def _init_tf_layer(cfg: ModelConfig, moe: bool):
+    def f(gen):
+        dev = device_of(gen)
+        p = {"ln1": init_rms(cfg.d_model, cfg.pdtype, dev),
+             "ln2": init_rms(cfg.d_model, cfg.pdtype, dev)}
+        if cfg.use_mla:
+            p["attn"] = init_mla(
+                gen, cfg.d_model, cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+                kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
+                rope_dim=cfg.rope_dim, v_head_dim=cfg.v_head_dim,
+                dtype=cfg.pdtype)
+        else:
+            p["attn"] = init_attention(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, cfg.pdtype, qk_norm=cfg.qk_norm)
+        if moe:
+            p["moe"] = init_moe(gen, cfg.d_model, cfg.moe_d_ff,
+                                cfg.n_experts, cfg.n_shared_experts,
+                                cfg.n_shared_experts * cfg.moe_d_ff or None,
+                                dtype=cfg.pdtype)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype)
+        return p
+    return f
+
+
+def init_params(cfg: ModelConfig,
+                gen: Optional[torch.Generator]) -> Dict[str, Any]:
+    """The parameter tree of ``cfg``, drawn from ``gen`` on its device, in
+    ``cfg.pdtype`` (the reference's tree: same paths, shapes, dtypes);
+    ``gen=None`` gives the tree's meta tensors (shapes only)."""
+    dev = device_of(gen)
+    p: Dict[str, Any] = {
+        "embed": init_embedding(gen, cfg.vocab, cfg.d_model, cfg.pdtype),
+        "ln_f": init_rms(cfg.d_model, cfg.pdtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, cfg.pdtype)
+
+    if cfg.family in ("dense", "vlm", "audio"):
+        p["layers"] = _stacked(_init_tf_layer(cfg, False), gen, cfg.n_layers)
+    elif cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            p["dense_layers"] = _stacked(_init_tf_layer(cfg, False), gen, nd)
+        p["layers"] = _stacked(_init_tf_layer(cfg, True), gen,
+                               cfg.n_layers - nd)
+    elif cfg.family == "ssm":
+        def init_m(g):
+            return {"ln": init_rms(cfg.d_model, cfg.pdtype, device_of(g)),
+                    "cell": init_mlstm(g, cfg.d_model, cfg.n_heads,
+                                       dtype=cfg.pdtype)}
+        mpos = [i for i in range(cfg.n_layers) if i not in cfg.slstm_layers]
+        p["mlstm_layers"] = _stacked(init_m, gen, len(mpos))
+        p["slstm_layers"] = [
+            {"ln": init_rms(cfg.d_model, cfg.pdtype, dev),
+             "cell": init_slstm(gen, cfg.d_model, cfg.n_heads, cfg.pdtype)}
+            for _ in cfg.slstm_layers]
+    elif cfg.family == "hybrid":
+        def init_mb(g):
+            return {"ln": init_rms(cfg.d_model, cfg.pdtype, device_of(g)),
+                    "cell": init_mamba2(g, cfg.d_model,
+                                        expand=cfg.ssm_expand,
+                                        headdim=cfg.ssm_headdim,
+                                        d_state=cfg.ssm_state,
+                                        dtype=cfg.pdtype)}
+        p["mamba_layers"] = _stacked(init_mb, gen, cfg.n_layers)
+        p["shared_attn"] = _init_tf_layer(cfg, False)(gen)
+    else:
+        raise ValueError(cfg.family)
+
+    if cfg.frontend == "siglip_stub":
+        p["patch_proj"] = dense_init(gen, cfg.patch_dim, cfg.d_model,
+                                     cfg.pdtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _tf_layer(cfg: ModelConfig, p, x, moe: bool, cache=None, prefix_len=None):
+    gelu = cfg.activation == "gelu"
+    h = rms_norm(x, p["ln1"], add_unit_offset=gelu)
+    if cfg.use_mla:
+        a, new_cache = mla_attention(
+            p["attn"], h, n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim,
+            rope_dim=cfg.rope_dim, v_head_dim=cfg.v_head_dim,
+            kv_lora_rank=cfg.kv_lora_rank, rope_theta=cfg.rope_theta,
+            compute_dtype=cfg.cdtype, cache=cache)
+    else:
+        a, new_cache = attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            qk_norm=cfg.qk_norm, window=cfg.window, prefix_len=prefix_len,
+            compute_dtype=cfg.cdtype, cache=cache, soft_cap=cfg.soft_cap)
+    x = x + a.to(x.dtype)
+    h = rms_norm(x, p["ln2"], add_unit_offset=gelu)
+    if moe:
+        m = apply_moe(p["moe"], h, k=cfg.top_k, dispatch=cfg.moe_dispatch,
+                      compute_dtype=cfg.cdtype)
+    else:
+        m = apply_mlp(p["mlp"], h, activation=cfg.activation,
+                      compute_dtype=cfg.cdtype)
+    return x + m.to(x.dtype), new_cache
+
+
+def _scan_stack(stack, x, layer_fn, caches=None):
+    """``layer_fn`` over a stacked layer tree, layer by layer, with each
+    layer's slice of the stacked caches; returns (x, the new caches
+    stacked, or None without caches)."""
+    n = _stack_len(stack)
+    new_caches = []
+    for i in range(n):
+        lp = tree_map(lambda a: a[i], stack)
+        c = None if caches is None else tree_map(lambda a: a[i], caches)
+        x, c2 = layer_fn(lp, x, c)
+        new_caches.append(c2)
+    if caches is None or not n:
+        return x, caches
+    return x, tree_stack(new_caches)
+
+
+def _check_tokens(cfg: ModelConfig, tokens: torch.Tensor) -> None:
+    lo, hi = (int(v) for v in torch.aminmax(tokens))
+    if lo < 0 or hi >= cfg.vocab:
+        raise ValueError(f"token ids must lie in [0, {cfg.vocab}); got "
+                         f"[{lo}, {hi}]")
+
+
+def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Token/frame/patch embedding (modality stubs live here)."""
+    cd = cfg.cdtype
+    if cfg.frontend == "encodec_stub":
+        x = batch["frames"].to(cd)                # (B, S, D) precomputed
+        prefix_len = None
+    else:
+        tokens = batch["tokens"]
+        _check_tokens(cfg, tokens)
+        x = params["embed"][tokens.long()].to(cd)
+        prefix_len = None
+        if cfg.frontend == "siglip_stub":
+            patches = (batch["patches"].to(cd)
+                       @ params["patch_proj"].to(cd))
+            x = torch.cat([patches, x], dim=1)
+            prefix_len = cfg.n_patches
+    if cfg.family in ("dense", "vlm") and cfg.activation == "gelu":
+        # gemma scaling by sqrt(d_model), rounded to the compute dtype
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=x.device)
+    return x, prefix_len
+
+
+def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
+            ) -> Tuple[torch.Tensor, Any]:
+    """Returns (logits (B, S, V), new caches or None)."""
+    if remat not in (None, "none"):
+        raise NotImplementedError(f"remat={remat!r}: {_TRAIN_SLICE}")
+    x, prefix_len = embed_inputs(cfg, params, batch)
+    new_caches: Dict[str, Any] = {}
+
+    if cfg.family in ("dense", "vlm", "audio"):
+        def fn(lp, h, c):
+            return _tf_layer(cfg, lp, h, False, c, prefix_len)
+        x, nc = _scan_stack(params["layers"], x, fn,
+                            caches["layers"] if caches else None)
+        new_caches["layers"] = nc
+    elif cfg.family == "moe":
+        if "dense_layers" in params:
+            def fn(lp, h, c):
+                return _tf_layer(cfg, lp, h, False, c)
+            x, nc = _scan_stack(params["dense_layers"], x, fn,
+                                caches["dense_layers"] if caches else None)
+            new_caches["dense_layers"] = nc
+
+        def fn_moe(lp, h, c):
+            return _tf_layer(cfg, lp, h, True, c)
+        x, nc = _scan_stack(params["layers"], x, fn_moe,
+                            caches["layers"] if caches else None)
+        new_caches["layers"] = nc
+    elif cfg.family == "ssm":
+        x, new_caches = _ssm_forward(cfg, params, x, caches)
+    elif cfg.family == "hybrid":
+        x, new_caches = _hybrid_forward(cfg, params, x, caches)
+
+    x = rms_norm(x, params["ln_f"],
+                 add_unit_offset=(cfg.activation == "gelu"))
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cfg.cdtype)
+    logits = x.to(cfg.cdtype) @ head
+    if cfg.frontend == "siglip_stub":
+        logits = logits[:, cfg.n_patches:]        # text positions only
+    return logits, (new_caches if caches is not None else None)
+
+
+def _ssm_forward(cfg, params, x, caches):
+    new_caches = {"mlstm": [], "slstm": []}
+    mi = si = 0
+    for i in range(cfg.n_layers):
+        if i in cfg.slstm_layers:
+            p = params["slstm_layers"][si]
+            c = caches["slstm"][si] if caches else None
+            h = rms_norm(x, p["ln"])
+            y, c2 = slstm(p["cell"], h, n_heads=cfg.n_heads,
+                          compute_dtype=cfg.cdtype, cache=c)
+            new_caches["slstm"].append(c2)
+            si += 1
+        else:
+            p = tree_map(lambda a: a[mi], params["mlstm_layers"])
+            c = tree_map(lambda a: a[mi], caches["mlstm"]) \
+                if caches else None
+            h = rms_norm(x, p["ln"])
+            y, c2 = mlstm(p["cell"], h, n_heads=cfg.n_heads,
+                          chunk=cfg.ssm_chunk, compute_dtype=cfg.cdtype,
+                          cache=c)
+            new_caches["mlstm"].append(c2)
+            mi += 1
+        x = x + y.to(x.dtype)
+    if caches is not None and new_caches["mlstm"]:
+        new_caches["mlstm"] = tree_stack(new_caches["mlstm"])
+    return x, new_caches
+
+
+def _hybrid_forward(cfg, params, x, caches):
+    """Zamba2: groups of attn_every mamba layers + the shared attn block."""
+    g = cfg.attn_every
+    n_groups = cfg.n_layers // g
+    stacked = tree_map(lambda a: a.reshape((n_groups, g) + a.shape[1:]),
+                       params["mamba_layers"])
+    new_caches = {"mamba": [], "attn": []}
+
+    def mamba_layer(lp, h, c):
+        hh = rms_norm(h, lp["ln"])
+        y, c2 = mamba2(lp["cell"], hh, expand=cfg.ssm_expand,
+                       headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                       chunk=cfg.ssm_chunk, compute_dtype=cfg.cdtype,
+                       cache=c)
+        return h + y.to(h.dtype), c2
+
+    for gi in range(n_groups):
+        grp = tree_map(lambda a: a[gi], stacked)
+        c = caches["mamba"][gi] if caches else None
+        x, c2 = _scan_stack(grp, x, mamba_layer, c)
+        new_caches["mamba"].append(c2)
+        ac = caches["attn"][gi] if caches else None
+        x, ac2 = _tf_layer(cfg, params["shared_attn"], x, False, ac)
+        new_caches["attn"].append(ac2)
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# caches + decode
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Zeroed caches of every layer for ``batch`` rows of up to
+    ``max_seq`` tokens, on ``device`` (CUDA unless the caller names one);
+    K/V and conv windows in ``dtype``, recurrent states in float32."""
+    dev = co.resolve_device(device)
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        if cfg.use_mla:
+            def one():
+                return init_mla_cache(batch, max_seq, cfg.kv_lora_rank,
+                                      cfg.rope_dim, dtype, device=dev)
+        else:
+            def one():
+                return init_kv_cache(batch, max_seq, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim, dtype,
+                                     device=dev)
+
+        def stack(n):
+            if n:
+                return tree_stack([one() for _ in range(n)])
+            return tree_map(lambda t: t[None][:0], one())
+        out = {}
+        if cfg.family == "moe" and cfg.first_dense_layers:
+            out["dense_layers"] = stack(cfg.first_dense_layers)
+            out["layers"] = stack(cfg.n_layers - cfg.first_dense_layers)
+        else:
+            out["layers"] = stack(cfg.n_layers)
+        return out
+    if cfg.family == "ssm":
+        n_m = cfg.n_layers - len(cfg.slstm_layers)
+        return {
+            "mlstm": tree_stack(
+                [init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                  device=dev) for _ in range(n_m)]),
+            "slstm": [init_slstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                       device=dev)
+                      for _ in range(len(cfg.slstm_layers))],
+        }
+    if cfg.family == "hybrid":
+        g = cfg.attn_every
+        n_groups = cfg.n_layers // g
+
+        def mk():
+            return init_mamba2_cache(batch, cfg.d_model,
+                                     expand=cfg.ssm_expand,
+                                     headdim=cfg.ssm_headdim,
+                                     d_state=cfg.ssm_state, dtype=dtype,
+                                     device=dev)
+        return {
+            "mamba": [tree_stack([mk() for _ in range(g)])
+                      for _ in range(n_groups)],
+            "attn": [init_kv_cache(batch, max_seq, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, dtype, device=dev)
+                     for _ in range(n_groups)],
+        }
+    raise ValueError(cfg.family)
+
+
+def decode_step(cfg: ModelConfig, params, caches, batch):
+    """One new token against the KV/state caches. Returns (logits (B, V),
+    caches)."""
+    logits, new_caches = forward(cfg, params, batch, caches)
+    return logits[:, -1], new_caches

@@ -1132,3 +1132,70 @@ def test_moe_blocks_on_the_card_equal_the_cpu(cuda):
             np.testing.assert_array_equal(out[name].to_dense(),
                                           ref[name].to_dense())
             np.testing.assert_array_equal(out[name].to_dense(), lin[name])
+
+
+# -- the language-model path -------------------------------------------------
+
+LM_TOL = 1e-5       # float32 compute on both devices: summation order only
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "paligemma-3b",
+                                  "musicgen-large", "moonshot-v1-16b-a3b",
+                                  "deepseek-v3-671b", "xlstm-125m",
+                                  "zamba2-2.7b"])
+def test_lm_forward_on_the_card_equals_the_cpu(cuda, arch):
+    """One architecture of each family at its reduced config, float32
+    compute and float32 caches: ``forward`` over 8 tokens, then a cached
+    prefill of 6 and two ``decode_step``s, on the card within ``LM_TOL``
+    of the CPU's logits (relative to the largest) on the same parameters;
+    the stubs get frames, or patches with every step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (decode_step, forward, init_caches,
+                                          init_params, tree_map)
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(0)
+    batch = {}
+    if cfg.frontend == "encodec_stub":
+        batch["frames"] = torch.tensor(
+            rng.normal(size=(2, 8, cfg.d_model)), dtype=torch.float32)
+    else:
+        batch["tokens"] = torch.tensor(rng.integers(0, cfg.vocab, (2, 8)),
+                                       dtype=torch.int32)
+    patches = {}
+    if cfg.frontend == "siglip_stub":
+        patches["patches"] = torch.tensor(
+            rng.normal(size=(2, cfg.n_patches, cfg.patch_dim)),
+            dtype=torch.float32)
+
+    def rel(got, want):
+        got, want = got.double().cpu(), want.double()
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        return float((got - want).abs().max() / want.abs().max())
+
+    def on(dev, b):
+        return {k: v.to(dev) for k, v in b.items()}
+
+    want, _ = forward(cfg, params, dict(batch, **patches))
+    got, _ = forward(cfg, on_card, on(cuda, dict(batch, **patches)))
+    assert got.device.type == "cuda" and rel(got, want) <= LM_TOL
+    runs = [[params, torch.device("cpu"), None], [on_card, cuda, None]]
+    for run in runs:
+        run[2] = init_caches(cfg, 2, 64, dtype=torch.float32, device=run[1])
+    for i, (lo, hi) in enumerate([(0, 6), (6, 7), (7, 8)]):
+        step = dict({k: v[:, lo:hi] for k, v in batch.items()}, **patches)
+        outs = []
+        for run in runs:
+            p, dev, c = run
+            if i == 0:
+                out, run[2] = forward(cfg, p, on(dev, step), c)
+            else:
+                out, run[2] = decode_step(cfg, p, c, on(dev, step))
+            outs.append(out)
+        assert rel(outs[1], outs[0]) <= LM_TOL

@@ -4,12 +4,13 @@
 (out-of-core) and the same request with ``--workers 2`` (its tiles
 distributed); the served results of the last dispatch equal numpy on the
 operand sets ``serve_sam`` draws from its seed. The language-model mode
-refuses with ``NotImplementedError`` (ROADMAP.md, still to port #8), and
-``--devices`` (lanes over several GPUs) is refused by the engine's lane
-placement, naming still to port #5.
+(no ``--sam``) serves on ``--device cpu`` and, with no GPU, refuses to
+run without it; ``--devices`` (lanes over several GPUs) is refused by the
+engine's lane placement, naming still to port #5.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core.autoschedule import random_operand
 from repro_torch.launch.serve import main
@@ -72,9 +73,15 @@ def test_serve_out_of_core_and_distributed(capsys, workers):
     assert "[serve-sam] 'X(i,j) = B(i,k) * C(k,j)': 2 requests" in out
 
 
-def test_lm_mode_and_lanes_over_gpus_are_refused():
-    with pytest.raises(NotImplementedError, match="still to port #8"):
-        main(["--device", "cpu"])
+def test_lm_mode_and_lanes_over_gpus_are_refused(capsys, monkeypatch):
+    seqs = main(["--arch", "qwen3-0.6b", "--reduced", "--batch", "2",
+                 "--prompt-len", "8", "--gen", "4", "--device", "cpu"])
+    assert seqs.shape == (2, 12) and seqs.dtype == torch.int32
+    assert "[serve] qwen3-0.6b: batch=2 prompt=8 gen=4 on cpu" in \
+        capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "qwen3-0.6b", "--reduced"])
     with pytest.raises((ValueError, NotImplementedError),
                        match="still to port #5"):
         main(["--sam", MM, "--split", "k=4", "--devices", "2",
