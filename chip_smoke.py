@@ -178,6 +178,31 @@ Phases:
       forward on one row against the CPU's, and for deepseek, xlstm and
       zamba2 a cached prefill and two decode steps against forward,
       within U_TOL;
+  (v) after (u), before (q): the language-model training path
+      (models.model.loss_fn, train.optimizer, train.train_step,
+      data.pipeline, distributed.checkpoint and fault_tolerance,
+      launch.train), no hand-written kernel on it. (1) qwen3-0.6b at its
+      full configuration (float32 parameters from init_params on the card,
+      bfloat16 compute, AdamW with bfloat16 moments, remat "dots"), batch 8
+      x 256 from batch_for_step, through launch.train.build and
+      TrainingRunner: 6 steps uninterrupted (each step timed; the median
+      of steps 2-6, tokens/s, the peak above what was live, the model FLOP
+      rate 6·N·2048 over the median step against 989 TFLOP/s), then a run
+      with ckpt_every=3 that fails at step 4 and a runner that resumes from
+      the step-3 checkpoint: it must run exactly 3 steps with the
+      uninterrupted run's losses bit for bit (the checkpoints' host copy,
+      write and restore seconds printed); one step profiled (the idle
+      share); one step's forward and backward from the same state and
+      batch under each of "none", "dots" and "full": the same loss, peaks
+      full <= dots <= none.
+      (2) qwen3-0.6b at full width, 2 of 28 layers, float32 compute: one
+      make_train_step step on (2, 32) on the card and on the CPU from the
+      same parameters and batch: the loss within 1e-5 relative, grad_norm
+      within 1e-4, each gradient leaf within 1e-4 of its largest
+      magnitude, the new parameters within 2 lr. (3) (u)(2)'s six
+      families at (u)(2)'s depths and full widths: loss and gradients and
+      a plain SGD step at lr 0.05, twice on one (4, 32) batch; the losses
+      finite and falling (ms and peak printed);
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -194,7 +219,8 @@ sddmm_bsr and bsr_attention must have launched only their tensor-core
 kernels (the launches by route are printed). They are zeroed
 before (k), (k2), (l) and (l2) too: coo_to_levels and a reduce kernel must have
 launched in (k), and no call of (k) may regrow its recorded capacities.
-They are zeroed before (u) and read after it (no kernel launches there).
+They are zeroed before (u) and read after it (no kernel launches there),
+and so before and after (v).
 They are zeroed before (s)'s first forward and read after it, and before
 the call of each of (t)'s MoEBlock and two compile_moe_block builds and
 read after it; their launches join the kernels line's.
@@ -2624,6 +2650,236 @@ def main() -> int:
     log(f"[u] launches {per_phase['u']} (no hand-written kernel lies on "
         f"the LM path); phase {time.perf_counter() - u_start:.1f} s")
 
+    # -- (v) the language-model training path -------------------------------
+    # after (u), before (q); no hand-written kernel lies on it, so the
+    # counts zeroed here must stay 0
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.distributed.fault_tolerance import TrainingRunner
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import (make_train_step,
+                                              remat_loss_fn, value_and_grad)
+
+    torch.cuda.empty_cache()
+    v_start = time.perf_counter()
+    kops.reset_launch_counts()
+
+    # (v)(1) qwen3-0.6b whole through launch.train.build, TrainingRunner
+    # and a Checkpointer: 6 steps uninterrupted, then a run that fails at
+    # step 4 after its step-3 checkpoint and one that resumes
+    v_b, v_s, v_steps = 8, 256, 6
+    v_tokens = v_b * v_s
+    v_cfg, _, v_state, v_step, v_data = lm_train.build(
+        "qwen3-0.6b", reduced=False, batch=v_b, seq=v_s, remat="dots",
+        steps=v_steps)
+    v_ms = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = v_step(state, batch)
+        torch.cuda.synchronize()
+        v_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    torch.cuda.synchronize()
+    v_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        golden_state, golden = TrainingRunner(
+            timed_step, v_data, Checkpointer(os.path.join(tmp, "a")),
+            ckpt_every=v_steps + 1).run(v_state, v_steps)
+        v_peak = torch.cuda.max_memory_allocated() - v_base
+        del golden_state
+        ck_dir = os.path.join(tmp, "b")
+        ck_fail, ck_resume = Checkpointer(ck_dir), Checkpointer(ck_dir)
+        try:
+            TrainingRunner(v_step, v_data, ck_fail,
+                           ckpt_every=3).run(v_state, v_steps, fail_at=4)
+        except RuntimeError as exc:     # the injected failure, and only it
+            if str(exc) != "injected failure at step 4":
+                raise
+        else:
+            raise AssertionError("(v) the injected failure did not happen")
+        t0 = time.perf_counter()
+        v_final, resumed = TrainingRunner(
+            v_step, v_data, ck_resume, ckpt_every=3).run(v_state, v_steps)
+        resume_s = time.perf_counter() - t0
+        saved = Checkpointer(ck_dir).all_steps()
+    golden_loss = [h["loss"] for h in golden]
+    resumed_loss = [h["loss"] for h in resumed]
+    if (len(resumed) != 3 or saved != [3, 6]
+            or [h["step"] for h in resumed] != [4.0, 5.0, 6.0]
+            or not all(np.isfinite(golden_loss))):
+        raise AssertionError(f"(v) resumed {resumed}, checkpoints {saved}, "
+                             f"losses {golden_loss}")
+    if resumed_loss != golden_loss[3:]:
+        raise AssertionError(f"(v) resumed losses {resumed_loss} against "
+                             f"the uninterrupted run's {golden_loss[3:]}")
+    v_med = statistics.median(v_ms[1:])
+    v_flops = model_flops(v_cfg.n_active_params(), v_tokens, "train")
+    v_rate = v_flops / (v_med / 1e3)
+    one_batch = v_data(0)
+    v_prof = device_profile(lambda: v_step(v_final, one_batch))
+    log(f"[v] qwen3-0.6b full ({v_cfg.n_layers} layers, {v_cfg.n_params()} "
+        f"float32 params, bfloat16 compute, AdamW bf16 moments, remat "
+        f"dots) batch {v_b} x {v_s} through launch.train.build and "
+        f"TrainingRunner: step ms first {v_ms[0]:.1f}, median "
+        f"{v_med:.3f} (min {min(v_ms[1:]):.3f}, max {max(v_ms[1:]):.3f} "
+        f"over steps 2-{v_steps}), {v_tokens / (v_med / 1e3):.1f} tokens/s;"
+        f" peak allocated {v_peak} bytes above the {v_base} live; losses "
+        f"{golden_loss}")
+    log(f"[v] a failure at step 4, then a runner resumed from the step-3 "
+        f"checkpoint ran exactly 3 steps in {resume_s:.1f} s (restore "
+        f"included) with the uninterrupted run's losses bit for bit "
+        f"{resumed_loss}; checkpoints {saved}; the step-3 save: host copy "
+        f"{ck_fail.seconds['copy']:.2f} s, write "
+        f"{ck_fail.seconds['write']:.2f} s; the step-6 save: host copy "
+        f"{ck_resume.seconds['copy']:.2f} s, write "
+        f"{ck_resume.seconds['write']:.2f} s; the restore "
+        f"{ck_resume.seconds['restore']:.2f} s")
+    log(f"[v] model FLOP rate {v_rate / 1e12:.4f} TFLOP/s ({v_flops:.4g} "
+        f"FLOP a step, 6 x {v_cfg.n_active_params()} x {v_tokens}), "
+        f"{v_rate / H100_BF16_FLOPS:.4f} of 989 TFLOP/s")
+    log(f"[v] one profiled step: {v_prof['wall_ms']:.3f} ms with "
+        f"{v_prof['device_busy_ms']:.3f} ms of kernels on the card, idle "
+        f"share " + ("not measured" if v_prof["idle_share"] is None
+                     else f"{v_prof['idle_share']:.4f}"))
+    for row in v_prof["top_kernels"][:4]:
+        log(f"[v]   {row['ms']:.3f} ms x{row['count']} {row['name']}")
+    del v_final
+
+    # one step's forward and backward from the same state and batch under
+    # each remat policy (without the update, whose temporaries hide the
+    # activations a policy keeps): the same loss, peaks ordered
+    # full <= dots <= none
+    remat_peak, remat_loss, remat_ms = {}, {}, {}
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = synced_ms(fn)
+        return out, ms, torch.cuda.max_memory_allocated() - base
+
+    for policy in ("none", "dots", "full"):
+        out, remat_ms[policy], remat_peak[policy] = peak_above(
+            lambda: value_and_grad(remat_loss_fn(v_cfg, policy),
+                                   v_state[0], one_batch))
+        remat_loss[policy] = float(out[0])
+        del out
+    if (len(set(remat_loss.values())) != 1 or not
+            remat_peak["full"] <= remat_peak["dots"] <= remat_peak["none"]):
+        raise AssertionError(f"(v) remat losses {remat_loss}, peaks "
+                             f"{remat_peak}")
+    log("[v] one step's forward and backward a remat policy (peak "
+        "allocated bytes above the state, ms): "
+        + ", ".join(f"{k} {remat_peak[k]} ({remat_ms[k]:.1f} ms)"
+                    for k in ("none", "dots", "full"))
+        + f"; the same loss {remat_loss['none']}")
+    workloads["LM training qwen3-0.6b (v)"] = {
+        "first_ms": v_ms[0], "warm_ms": v_med, "step_ms": v_ms,
+        "tokens_per_s": v_tokens / (v_med / 1e3), "peak_bytes": v_peak,
+        "live_bytes": v_base, "losses": golden_loss,
+        "resumed_losses": resumed_loss, "resume_s": resume_s,
+        "checkpoint_s": {"step 3": ck_fail.seconds,
+                         "step 6": ck_resume.seconds},
+        "profile": v_prof, "model_flops_per_s": v_rate,
+        "bf16_peak_share": v_rate / H100_BF16_FLOPS,
+        "remat_grad_peak_bytes": remat_peak, "remat_grad_ms": remat_ms}
+    del v_state, one_batch
+    torch.cuda.empty_cache()
+
+    # (v)(2) the card's train step against the CPU's: qwen3-0.6b at full
+    # width, 2 of 28 layers, float32 compute, one AdamW step on (2, 32)
+    c_cfg = dataclasses.replace(v_cfg, n_layers=2, compute_dtype="float32")
+    c_opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    c_step = make_train_step(c_cfg, c_opt, remat="dots")
+    c_params = lm.init_params(
+        c_cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    c_batch = batch_for_step(c_cfg, ShapeConfig("v2", 32, 2, "train"), 0)
+    on_host = lm.tree_map(lambda t: t.cpu(), c_params)
+    host_batch = {k: v.cpu() for k, v in c_batch.items()}
+    runs = {}
+    for dev, p, b in (("cuda", c_params, c_batch),
+                      ("cpu", on_host, host_batch)):
+        (new_p, new_o, m), ms = synced_ms(lambda: c_step(
+            p, init_opt_state(c_opt, p), b))
+        grads = lm.tree_leaves(value_and_grad(
+            remat_loss_fn(c_cfg, None), p, b)[1])
+        runs[dev] = (m, grads, lm.tree_leaves(new_p), ms)
+        del new_p, new_o
+    (m_g, g_g, p_g, ms_g), (m_c, g_c, p_c, ms_c) = runs["cuda"], runs["cpu"]
+    loss_err = abs(float(m_g["loss"]) - float(m_c["loss"])) / abs(
+        float(m_c["loss"]))
+    norm_err = abs(float(m_g["grad_norm"]) - float(m_c["grad_norm"])) / \
+        float(m_c["grad_norm"])
+    grad_err = max(float((a.cpu().double() - b.double()).abs().max()
+                         / max(float(b.abs().max()), 1e-30))
+                   for a, b in zip(g_g, g_c))
+    param_err = max(float((a.cpu().double() - b.double()).abs().max())
+                    for a, b in zip(p_g, p_c))
+    if (loss_err > 1e-5 or norm_err > 1e-4 or grad_err > 1e-4
+            or param_err > 2 * c_opt.lr):
+        raise AssertionError(f"(v)(2) card against CPU: loss {loss_err}, "
+                             f"grad_norm {norm_err}, gradients {grad_err}, "
+                             f"parameters {param_err}")
+    log(f"[v] qwen3-0.6b at full width, 2 of 28 layers, float32, one AdamW "
+        f"step on (2, 32): card {ms_g:.1f} ms, CPU {ms_c:.1f} ms; the "
+        f"card's loss against the CPU's rel err {loss_err:.3e} (tolerance "
+        f"1e-5), grad_norm {norm_err:.3e} (1e-4), the largest gradient "
+        f"leaf's error over its largest magnitude {grad_err:.3e} (1e-4), "
+        f"new parameters within {param_err:.3e} (2 lr = {2 * c_opt.lr})")
+    workloads["LM train step card against CPU (v)"] = {
+        "first_ms": ms_g, "cpu_ms": ms_c, "rel_err_loss": loss_err,
+        "rel_err_grad_norm": norm_err, "rel_err_grads": grad_err,
+        "param_err": param_err}
+    del c_params, on_host, runs, g_g, g_c, p_g, p_c, grads, p, b
+    torch.cuda.empty_cache()
+
+    # (v)(3) one train step each for the other families at full width, the
+    # depth of (u)(2): loss and gradients, plain SGD at lr 0.05, twice on
+    # one (4, 32) batch (tests/test_arch_smoke.py's step); the loss falls
+    for arch, n_layers, extra, _ in U_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                  **extra)
+        params = lm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        batch = batch_for_step(cfg, ShapeConfig("v3", 32, 4, "train"), 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(2):
+            (loss, grads), t = synced_ms(lambda: value_and_grad(
+                remat_loss_fn(cfg, None), params, batch))
+            params = lm.tree_map(lambda p, g: p - 0.05 * g.to(p.dtype),
+                                 params, grads)
+            losses.append(float(loss))
+            ms.append(t)
+            del grads
+        peak = torch.cuda.max_memory_allocated() - base
+        if not (np.isfinite(losses).all() and losses[1] < losses[0]):
+            raise AssertionError(f"(v)(3) {arch}: losses {losses}")
+        log(f"[v] {arch}, {n_layers} of {get_config(arch).n_layers} layers"
+            + (f" ({extra})" if extra else "") + f", {cfg.n_params()} "
+            f"params: loss {losses[0]:.4f} -> {losses[1]:.4f} after one "
+            f"SGD step; step ms {ms[0]:.1f} then {ms[1]:.1f}; peak {peak} "
+            f"bytes above the {base} live")
+        workloads[f"LM training {arch} (v)"] = {
+            "first_ms": ms[0], "warm_ms": ms[1], "losses": losses,
+            "peak_bytes": peak}
+        del params, batch
+        torch.cuda.empty_cache()
+    per_phase["v"] = kops.launch_counts()
+    if any(per_phase["v"].values()):
+        raise AssertionError(f"(v) launched a hand-written kernel: "
+                             f"{per_phase['v']}")
+    log(f"[v] launches {per_phase['v']} (no hand-written kernel lies on "
+        f"the LM training path); phase {time.perf_counter() - v_start:.1f} s")
+
     # -- (q) serving, threaded, on the card ---------------------------------
     # last of the paths, after (f): a torch.profiler session that spans
     # the server's threads leaves later sessions missing device events
@@ -2928,8 +3184,8 @@ def main() -> int:
     # line
     for row in kernels:
         row["launches"] += sum(per_phase[t][row["name"]]
-                               for t in ("s", "t2", "t3", "t3s", "u", "q",
-                                         "r"))
+                               for t in ("s", "t2", "t3", "t3s", "u",
+                                         "v", "q", "r"))
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

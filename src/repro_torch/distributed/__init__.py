@@ -1,2 +1,3 @@
-"""The pieces of the reference's ``distributed`` package that the
-distributed tile driver (``core/dist_exec.py``) uses."""
+"""The port's distributed runtime on one device: checkpoints, the
+fault-tolerant training runner and straggler watchdog, the sharding
+rules and elastic resharding."""

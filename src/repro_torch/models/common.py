@@ -1,8 +1,7 @@
 """Shared model components of the PyTorch port: norms, rotary embeddings,
 the gated MLP, embeddings, and the carrier of the reference's parameters.
 
-A port of ``repro.models.common`` without ``cross_entropy``, which comes
-with the training slice. Pure-functional style: ``init_*`` builds
+A port of ``repro.models.common``. Pure-functional style: ``init_*`` builds
 parameter trees (dicts of tensors), the apply functions are stateless.
 Parameters are drawn in ``param_dtype`` (float32 by default) and computed
 in ``compute_dtype`` (bfloat16 by default), the reference's
@@ -26,7 +25,7 @@ from ..core import coord_ops as co
 
 __all__ = ["device_of", "normal", "rms_norm", "init_rms", "dense_init",
            "rope_angles", "apply_rope", "init_mlp", "apply_mlp",
-           "init_embedding", "params_from_numpy"]
+           "init_embedding", "cross_entropy", "params_from_numpy"]
 
 
 def device_of(gen: Optional[torch.Generator]) -> torch.device:
@@ -119,6 +118,20 @@ def apply_mlp(p: dict, x: torch.Tensor, activation: str = "silu",
 def init_embedding(gen: Optional[torch.Generator], vocab: int, d_model: int,
                    dtype) -> torch.Tensor:
     return (normal(gen, (vocab, d_model)) * 0.02).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in float32; with ``mask``, the mean over
+    the masked tokens (``sum(mask)`` at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def params_from_numpy(p, device=None, dtype=None):

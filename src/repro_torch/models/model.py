@@ -17,23 +17,37 @@ reference's ``lax.scan`` over a stack is a loop over its L axis, each
 layer's cache sliced from the stacked caches and the new ones stacked
 back. ``cfg.unroll_scan`` unrolls the reference's scan for its roofline
 probes; an eager loop has nothing to unroll, so the port ignores it.
-Activation sharding (the reference's ``shard_activation``) and the
-expert-parallel policy come with the distributed half of the LM stack;
-``loss_fn`` and rematerialization (``remat`` other than None/"none")
-with the training slice. Token ids outside the vocabulary raise
-``ValueError`` where the reference's gather would clamp them.
+A stack's layers are taken with one ``torch.unbind`` a tensor, so that
+under autograd the backward pass of a stack is one ``torch.stack`` (a
+slice a layer would add a zero tensor the size of the whole stack to
+the gradient, once a layer). ``loss_fn`` is the reference's: the
+token-mean cross entropy of ``forward``'s logits. ``remat`` checkpoints
+each layer of the stacks the reference checkpoints (the dense, vlm,
+audio and both moe stacks, zamba2's mamba layers; not xlstm's loop, and
+never when caches are passed) with
+``torch.utils.checkpoint.checkpoint``: ``"full"`` saves nothing of a
+layer (``nothing_saveable``), ``"dots"`` saves the outputs of the
+projections (``aten.mm``/``aten.addmm``, the products without batch
+dims: ``dots_with_no_batch_dims_saveable``) and recomputes everything
+else. Activation sharding (the reference's ``shard_activation``) and
+the expert-parallel policy come with lanes over several devices
+(ROADMAP.md, still to port #5); on one device they change nothing. Token
+ids outside the vocabulary raise ``ValueError`` where the reference's
+gather would clamp them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core import coord_ops as co
 from .attention import attention, init_attention, init_kv_cache
-from .common import (apply_mlp, dense_init, device_of, init_embedding,
-                     init_mlp, init_rms, rms_norm)
+from .common import (apply_mlp, cross_entropy, dense_init, device_of,
+                     init_embedding, init_mlp, init_rms, rms_norm)
 from .mamba2 import init_mamba2, init_mamba2_cache, mamba2
 from .mla import init_mla, init_mla_cache, mla_attention
 from .moe import apply_moe, init_moe
@@ -41,10 +55,9 @@ from .xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
                     init_slstm_cache, mlstm, slstm)
 
 __all__ = ["init_params", "embed_inputs", "forward", "init_caches",
-           "decode_step", "tree_map", "tree_stack"]
-
-_TRAIN_SLICE = ("rematerialization comes with the training slice "
-                "(ROADMAP.md, still to port #8)")
+           "loss_fn", "decode_step", "REMAT_POLICIES", "tree_map",
+           "tree_stack",
+           "tree_leaves", "tree_unflatten", "tree_unzip"]
 
 
 # ---------------------------------------------------------------------------
@@ -63,10 +76,64 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of nested dicts, lists and tuples in ``jax.tree.leaves``'
+    order: a dict's keys sorted, lists and tuples in order; None holds no
+    leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` in place of its own, in
+    ``tree_leaves``' order."""
+    return _unflatten(tree, iter(leaves))
+
+
+def _unflatten(t, it):
+    # a module-level recursion: a nested one would keep ``it``, and so the
+    # leaves, in a reference cycle until the garbage collector runs
+    if isinstance(t, dict):
+        out = {k: _unflatten(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(v, it) for v in t)
+    return None if t is None else next(it)
+
+
+def tree_unzip(tree, n: int) -> list:
+    """``n`` trees from one whose leaves are ``n``-tuples (what
+    ``tree_map`` of a function that returns a tuple leaves)."""
+    return [_pick(tree, i) for i in range(n)]
+
+
+def _pick(t, i: int):
+    if isinstance(t, dict):
+        return {k: _pick(v, i) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_pick(v, i) for v in t]
+    return t[i]
+
+
 def tree_stack(trees):
     """A list of trees of one structure as one tree, each tensor stacked
     on a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` trees along a stacked tree's leading axis, each tensor
+    split by one ``torch.unbind``."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [[v[i] for v in parts] for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _stack_len(stack) -> int:
@@ -198,20 +265,62 @@ def _tf_layer(cfg: ModelConfig, p, x, moe: bool, cache=None, prefix_len=None):
     return x + m.to(x.dtype), new_cache
 
 
-def _scan_stack(stack, x, layer_fn, caches=None):
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Save the projections' outputs (2-D products: ``mm``, ``addmm``);
+    recompute everything else, the batched score products included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# policy name -> the ``context_fn`` of its per-layer checkpoint (None: the
+# default context, which saves nothing of the layer); "none" checkpoints
+# nothing
+_REMAT_CONTEXTS = {
+    "full": None,
+    "dots": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                              _dots_saveable),
+}
+REMAT_POLICIES = ("none",) + tuple(_REMAT_CONTEXTS)
+
+
+def _remat(name) -> Optional[Callable]:
+    """The per-layer checkpoint of policy ``name`` as a function of the
+    layer's function, or None for no checkpoint; ``ValueError`` for a name
+    not in ``REMAT_POLICIES``."""
+    if name in (None, "none"):
+        return None
+    if name not in _REMAT_CONTEXTS:
+        raise ValueError(name)
+    context_fn = _REMAT_CONTEXTS[name]
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def wrap(fn):
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 **kw)
+    return wrap
+
+
+def _scan_stack(stack, x, layer_fn, caches=None, remat=None):
     """``layer_fn`` over a stacked layer tree, layer by layer, with each
     layer's slice of the stacked caches; returns (x, the new caches
-    stacked, or None without caches)."""
+    stacked, or None without caches). ``remat`` (a wrapper from
+    ``_remat``) checkpoints each layer when there are no caches."""
     n = _stack_len(stack)
+    layers = _unstack(stack, n)
+    if caches is None:
+        def body(lp, h):
+            return layer_fn(lp, h, None)[0]
+        if remat is not None:
+            body = remat(body)
+        for lp in layers:
+            x = body(lp, x)
+        return x, None
     new_caches = []
-    for i in range(n):
-        lp = tree_map(lambda a: a[i], stack)
-        c = None if caches is None else tree_map(lambda a: a[i], caches)
+    for lp, c in zip(layers, _unstack(caches, n)):
         x, c2 = layer_fn(lp, x, c)
         new_caches.append(c2)
-    if caches is None or not n:
-        return x, caches
-    return x, tree_stack(new_caches)
+    return x, (tree_stack(new_caches) if n else caches)
 
 
 def _check_tokens(cfg: ModelConfig, tokens: torch.Tensor) -> None:
@@ -245,9 +354,9 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
             ) -> Tuple[torch.Tensor, Any]:
-    """Returns (logits (B, S, V), new caches or None)."""
-    if remat not in (None, "none"):
-        raise NotImplementedError(f"remat={remat!r}: {_TRAIN_SLICE}")
+    """Returns (logits (B, S, V), new caches or None). ``remat``: None or
+    ``"none"``, ``"dots"`` or ``"full"`` (see the module's docstring)."""
+    remat = _remat(remat)
     x, prefix_len = embed_inputs(cfg, params, batch)
     new_caches: Dict[str, Any] = {}
 
@@ -255,25 +364,26 @@ def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
         def fn(lp, h, c):
             return _tf_layer(cfg, lp, h, False, c, prefix_len)
         x, nc = _scan_stack(params["layers"], x, fn,
-                            caches["layers"] if caches else None)
+                            caches["layers"] if caches else None, remat)
         new_caches["layers"] = nc
     elif cfg.family == "moe":
         if "dense_layers" in params:
             def fn(lp, h, c):
                 return _tf_layer(cfg, lp, h, False, c)
             x, nc = _scan_stack(params["dense_layers"], x, fn,
-                                caches["dense_layers"] if caches else None)
+                                caches["dense_layers"] if caches else None,
+                                remat)
             new_caches["dense_layers"] = nc
 
         def fn_moe(lp, h, c):
             return _tf_layer(cfg, lp, h, True, c)
         x, nc = _scan_stack(params["layers"], x, fn_moe,
-                            caches["layers"] if caches else None)
+                            caches["layers"] if caches else None, remat)
         new_caches["layers"] = nc
     elif cfg.family == "ssm":
         x, new_caches = _ssm_forward(cfg, params, x, caches)
     elif cfg.family == "hybrid":
-        x, new_caches = _hybrid_forward(cfg, params, x, caches)
+        x, new_caches = _hybrid_forward(cfg, params, x, caches, remat)
 
     x = rms_norm(x, params["ln_f"],
                  add_unit_offset=(cfg.activation == "gelu"))
@@ -287,6 +397,9 @@ def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
 
 def _ssm_forward(cfg, params, x, caches):
     new_caches = {"mlstm": [], "slstm": []}
+    n_m = _stack_len(params["mlstm_layers"])
+    m_params = _unstack(params["mlstm_layers"], n_m)
+    m_caches = _unstack(caches["mlstm"], n_m) if caches else None
     mi = si = 0
     for i in range(cfg.n_layers):
         if i in cfg.slstm_layers:
@@ -298,9 +411,8 @@ def _ssm_forward(cfg, params, x, caches):
             new_caches["slstm"].append(c2)
             si += 1
         else:
-            p = tree_map(lambda a: a[mi], params["mlstm_layers"])
-            c = tree_map(lambda a: a[mi], caches["mlstm"]) \
-                if caches else None
+            p = m_params[mi]
+            c = m_caches[mi] if caches else None
             h = rms_norm(x, p["ln"])
             y, c2 = mlstm(p["cell"], h, n_heads=cfg.n_heads,
                           chunk=cfg.ssm_chunk, compute_dtype=cfg.cdtype,
@@ -313,12 +425,13 @@ def _ssm_forward(cfg, params, x, caches):
     return x, new_caches
 
 
-def _hybrid_forward(cfg, params, x, caches):
+def _hybrid_forward(cfg, params, x, caches, remat=None):
     """Zamba2: groups of attn_every mamba layers + the shared attn block."""
     g = cfg.attn_every
     n_groups = cfg.n_layers // g
-    stacked = tree_map(lambda a: a.reshape((n_groups, g) + a.shape[1:]),
-                       params["mamba_layers"])
+    groups = _unstack(tree_map(
+        lambda a: a.reshape((n_groups, g) + a.shape[1:]),
+        params["mamba_layers"]), n_groups)
     new_caches = {"mamba": [], "attn": []}
 
     def mamba_layer(lp, h, c):
@@ -330,9 +443,8 @@ def _hybrid_forward(cfg, params, x, caches):
         return h + y.to(h.dtype), c2
 
     for gi in range(n_groups):
-        grp = tree_map(lambda a: a[gi], stacked)
         c = caches["mamba"][gi] if caches else None
-        x, c2 = _scan_stack(grp, x, mamba_layer, c)
+        x, c2 = _scan_stack(groups[gi], x, mamba_layer, c, remat)
         new_caches["mamba"].append(c2)
         ac = caches["attn"][gi] if caches else None
         x, ac2 = _tf_layer(cfg, params["shared_attn"], x, False, ac)
@@ -400,6 +512,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                      for _ in range(n_groups)],
         }
     raise ValueError(cfg.family)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat=None) -> torch.Tensor:
+    """The token-mean cross entropy of ``forward``'s logits against
+    ``batch["labels"]`` (over ``batch["mask"]`` where given), float32."""
+    logits, _ = forward(cfg, params, batch, remat=remat)
+    return cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def decode_step(cfg: ModelConfig, params, caches, batch):

@@ -1,2 +1,2 @@
-"""Training and serving steps of the port: so far the serving steps
-(``train_step``)."""
+"""Training and serving steps of the port: the optimizer (``optimizer``)
+and the train, prefill and decode steps (``train_step``)."""

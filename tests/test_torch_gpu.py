@@ -1199,3 +1199,81 @@ def test_lm_forward_on_the_card_equals_the_cpu(cuda, arch):
                 out, run[2] = decode_step(cfg, p, c, on(dev, step))
             outs.append(out)
         assert rel(outs[1], outs[0]) <= LM_TOL
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """qwen3-0.6b's reduced config in float32 compute, one AdamW step
+    (``make_train_step``, remat "dots") on the same parameters and batch:
+    the card's loss within 1e-5 and ``grad_norm`` within 1e-4 (relative)
+    of the CPU's, each new parameter within ``2 * lr`` of the CPU's (a
+    gradient near zero may take the other sign, and Adam's step then
+    moves it by about ``lr`` the other way) and 99% of them within 1e-5
+    of their leaf's largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models.model import init_params, tree_leaves, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
+                              compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt, remat="dots")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        batch = batch_for_step(cfg, ShapeConfig("t", 16, 4, "train"), 0,
+                               device=dev)
+        outs[dev.type] = step(p, init_opt_state(opt, p), batch)
+    (pc, _, mc), (pg, og, mg) = outs["cpu"], outs["cuda"]
+    assert og["m"]["embed"].device.type == "cuda"
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-5 * abs(
+        float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= 1e-4 * \
+        float(mc["grad_norm"])
+    close = total = 0
+    for got, want in zip(tree_leaves(pg), tree_leaves(pc)):
+        d = (got.cpu().double() - want.double()).abs()
+        assert float(d.max()) <= 2 * opt.lr
+        close += int((d <= 1e-5 * float(want.abs().max())).sum())
+        total += d.numel()
+    assert close >= 0.99 * total
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_cuda_tensors_restores_onto_the_card(cuda, tmp_path):
+    """An async save copies the CUDA leaves to the host before it returns
+    (an in-place change right after does not reach the file); restore
+    puts each leaf on its template's device in its dtype."""
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.models.model import tree_map
+
+    state = {"w": torch.arange(12.0, device=cuda).reshape(3, 4),
+             "m": torch.full((5,), 0.3, dtype=torch.bfloat16, device=cuda),
+             "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    want = tree_map(lambda t: t.clone(), state)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(7, state)
+    state["w"].add_(1.0)
+    ck.wait()
+    got, step = ck.restore(tree_map(torch.zeros_like, state))
+    assert step == 7
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+def test_train_main_runs_on_the_card_by_default(cuda, tmp_path, capsys):
+    """``launch.train.main`` without ``--device`` trains on the card."""
+    from repro_torch.launch.train import main
+
+    losses = main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "3",
+                   "--batch", "2", "--seq", "16", "--ckpt-dir",
+                   str(tmp_path), "--ckpt-every", "2"])
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert "[train] qwen3-0.6b steps=3" in capsys.readouterr().out

@@ -55,7 +55,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.distributed.sharding", "repro_torch.configs",
             "repro_torch.configs.base", "repro_torch.models.common",
             "repro_torch.models.moe", "repro_torch.models.moe_blocks",
-            "repro_torch.models.pruned_transformer"} <= set(mods)
+            "repro_torch.models.pruned_transformer",
+            "repro_torch.models.model", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.data.pipeline",
+            "repro_torch.distributed.checkpoint", "repro_torch.launch.specs",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -125,6 +129,9 @@ def _entry_calls():
     from repro_torch.models.common import params_from_numpy
     from repro_torch.models.moe_blocks import MoEBlock, compile_moe_block
     from repro_torch.models.pruned_transformer import PrunedTransformer
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.launch.train import main as train_main
 
     fmt = Format({"B": "cc", "c": "c"})
     sch = Schedule(loop_order=("i", "j"))
@@ -164,6 +171,10 @@ def _entry_calls():
         "PrunedTransformer": lambda: PrunedTransformer(REDUCED, seq_len=8,
                                                        block=4),
         "params_from_numpy": lambda: params_from_numpy({"w": np.ones(2)}),
+        "batch_for_step": lambda: batch_for_step(
+            REDUCED, ShapeConfig("t", 8, 2, "train"), 0),
+        "train": lambda: train_main(["--arch", "qwen3-0.6b", "--reduced",
+                                     "--steps", "1"]),
     }
 
 
@@ -174,7 +185,8 @@ def _entry_calls():
                                    "SamServer", "dist_compile",
                                    "make_host_mesh", "serve",
                                    "compile_moe_block", "MoEBlock",
-                                   "PrunedTransformer", "params_from_numpy"])
+                                   "PrunedTransformer", "params_from_numpy",
+                                   "batch_for_step", "train"])
 def test_entry_points_refuse_without_gpu(entry):
     _no_gpu()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -18,8 +18,8 @@ For every registered architecture at its reduced configuration:
   builds: frames, or patches with every step.
 
 Also: a MoE stack of zero layers (deepseek with only its dense layer),
-``remat`` refused as the training slice's, and token ids outside the
-vocabulary refused. The reference's functions are jitted once per
+``forward`` under each ``remat`` policy equal to the plain ``forward``,
+an unknown policy and token ids outside the vocabulary refused. The reference's functions are jitted once per
 architecture and shape.
 """
 import dataclasses
@@ -186,12 +186,26 @@ def test_moe_stack_of_zero_layers():
 
 
 def test_remat_and_out_of_range_tokens_are_refused():
+    """An unknown remat policy is refused (``ValueError``, as the
+    reference's ``_remat_policy``), and so are token ids outside the
+    vocabulary."""
     cfg = get_config("qwen3-0.6b", reduced=True)
     tp = TM.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TM.forward(cfg, tp, {"tokens": tokens}, remat="full")
-    TM.forward(cfg, tp, {"tokens": tokens}, remat="none")
+    with pytest.raises(ValueError, match="offload"):
+        TM.forward(cfg, tp, {"tokens": tokens}, remat="offload")
     for bad in (-1, cfg.vocab):
         with pytest.raises(ValueError, match="token ids"):
             TM.forward(cfg, tp, {"tokens": tokens + bad})
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "zamba2-2.7b"])
+def test_remat_forward_equals_the_plain_forward(arch):
+    """Each remat policy leaves ``forward``'s logits as they are."""
+    cfg = get_config(arch, reduced=True)
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.tensor(make_batch(cfg, S)["tokens"])}
+    want, _ = TM.forward(cfg, tp, batch)
+    for remat in ("none", "dots", "full"):
+        got, none = TM.forward(cfg, tp, batch, remat=remat)
+        assert none is None and torch.equal(got, want), remat
