@@ -203,6 +203,19 @@ Phases:
       families at (u)(2)'s depths and full widths: loss and gradients and
       a plain SGD step at lr 0.05, twice on one (4, 32) batch; the losses
       finite and falling (ms and peak printed);
+  (w) after (r), last: the launch tools and the examples. (1)
+      ``python -m repro_torch.launch.dryrun --sam`` on the card, in a
+      subprocess: X(i,j) = B(i,k) * C(k,j) at 48^3, density 0.1, all 16
+      level-format cells through the engine, each equal to the numpy
+      oracle, cycles under every simulator.HW_PRESETS entry; (2) the LM
+      dry-run on meta tensors (no device) for qwen3-0.6b's four shapes and
+      deepseek-v3-671b x train_4k on both production meshes: FLOPs, the
+      useful ratio model_flops / flops, per-device argument bytes against
+      80 GB and the compute and memory terms at the H100's rates; (3)
+      ``roofline_sweep --arch qwen3-0.6b --shape train_4k``, whose probe
+      extrapolation must equal (2)'s direct count; (4) the four
+      ``examples/torch_*.py`` as subprocesses on the card, each exiting 0
+      with its OK line; (1) and (4) start first and overlap (2) and (3);
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -221,6 +234,9 @@ before (k), (k2), (l) and (l2) too: coo_to_levels and a reduce kernel must have
 launched in (k), and no call of (k) may regrow its recorded capacities.
 They are zeroed before (u) and read after it (no kernel launches there),
 and so before and after (v).
+(w)'s launches are those its subprocesses print, each counted from 0
+in its own process ((1) and the examples; a reduce kernel and spmm_bsr
+must have launched); they join the kernels line's.
 They are zeroed before (s)'s first forward and read after it, and before
 the call of each of (t)'s MoEBlock and two compile_moe_block builds and
 read after it; their launches join the kernels line's.
@@ -330,6 +346,15 @@ KERNEL_META = {
 GAT = "T(i,j) = B(i,j) * C(i,f) * D(j,f); A(i,g) = T(i,j) * E(j,g)"
 GAT_FMT = {"B": "cc", "T": "cc", "C": "dd", "D": "dd", "E": "dd", "A": "dd"}
 GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
+
+
+# (w): the dry-run's SAM cells (16 level-format cells at 48^3 take about
+# 20 s of simulator cycles on the host) and the examples
+W_SAM = "X(i,j) = B(i,k) * C(k,j)"
+W_SAM_N = 48
+W_SAM_DENSITY = 0.1
+W_EXAMPLES = ("torch_quickstart.py", "torch_spmm_gustavson.py",
+              "torch_serve_batch.py", "torch_autotune.py")
 
 
 _START = time.perf_counter()
@@ -3180,12 +3205,142 @@ def main() -> int:
     workloads["distributed tiles (r)"]["cli_budget"] = cli_budget
     del o_arrays, want_o, teng, spmspm_d, want_d
 
+    # -- (w) the launch tools and the examples -------------------------------
+    # (1) and the four examples run as subprocesses on the card, started
+    # first so that they overlap (2) and (3), which count on meta tensors
+    # in this process; each subprocess prints its kernel launches, which
+    # make the phase's
+    from repro_torch.configs import SHAPES as LM_SHAPES
+    from repro_torch.core.autoschedule import (resolve_densities,
+                                               synthetic_operands)
+    from repro_torch.core.einsum import parse as w_parse
+    from repro_torch.launch import dryrun, roofline_sweep
+
+    w_start = time.perf_counter()
+    w_env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    w_dims = {"i": W_SAM_N, "j": W_SAM_N, "k": W_SAM_N}
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)     # (1)'s and (3)'s JSON
+    w_json = ROOT / "chiprun_out" / "w_sam_dryrun.json"
+    w_cmds = {"dryrun --sam": [
+        "-m", "repro_torch.launch.dryrun", "--sam", W_SAM, "--sam-dims",
+        ",".join(f"{k}={v}" for k, v in w_dims.items()), "--sam-density",
+        str(W_SAM_DENSITY), "--json", str(w_json)]}
+    w_cmds.update({name: [str(ROOT / "examples" / name)]
+                   for name in W_EXAMPLES})
+    w_procs = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable] + cmd, cwd=ROOT, env=w_env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, cmd in w_cmds.items()}
+    per_phase["w"] = {k: 0 for k in kops.launch_counts()}
+    w_runs = {}
+    try:
+        # (2) the LM cells on meta tensors: qwen3-0.6b's four shapes and
+        # deepseek-v3-671b x train_4k, both meshes (--all counts xlstm-125m's
+        # sLSTM scan op by op: minutes on the host)
+        t0 = time.perf_counter()
+        w_lm = {}
+        for arch, shape in ([("qwen3-0.6b", n) for n in LM_SHAPES]
+                            + [("deepseek-v3-671b", "train_4k")]):
+            for rec in dryrun.main(["--arch", arch, "--shape", shape,
+                                    "--both-meshes"]):
+                if rec.get("skipped"):
+                    log(f"[w] (2) {arch} x {shape}: skipped (full "
+                        f"attention at 500k)")
+                    continue
+                mem, r = rec["mem_per_device"], rec["roofline"]
+                w_lm[(arch, shape, rec["n_devices"])] = rec
+                log(f"[w] (2) {arch} x {shape} on {rec['n_devices']} "
+                    f"devices: flops {rec['flops']:.6e}, useful "
+                    f"{rec['useful_flop_ratio']:.4f}, arguments "
+                    f"{mem['argument_bytes']} bytes a device "
+                    f"({mem['argument_bytes'] / mem['hbm_bytes']:.4f} of "
+                    f"80 GB), compute {r['t_compute']:.4e} s, memory "
+                    f"{r['t_memory']:.4e} s a device at the H100's rates "
+                    f"({r['bottleneck']})")
+                if not (rec["flops"] > 0 and mem["fits"]):
+                    raise AssertionError(f"(w)(2) {rec}")
+        w2_s = time.perf_counter() - t0
+
+        # (3) the probe sweep of qwen3-0.6b x train_4k: its extrapolation
+        # must equal (2)'s direct count
+        t0 = time.perf_counter()
+        w_probe = roofline_sweep.main([
+            "--arch", "qwen3-0.6b", "--shape", "train_4k",
+            "--json", str(ROOT / "chiprun_out" / "w_roofline.json")])[0]
+        w3_s = time.perf_counter() - t0
+        direct = w_lm[("qwen3-0.6b", "train_4k", 256)]
+        if (w_probe["flops_per_device"] * 256 != direct["flops"]
+                or w_probe["bytes_per_device"] * 256
+                != direct["bytes_accessed"]):
+            raise AssertionError(f"(w)(3) probes {w_probe} against the "
+                                 f"direct count {direct}")
+        log(f"[w] (3) roofline_sweep qwen3-0.6b x train_4k: probes "
+            f"extrapolate {w_probe['flops_per_device'] * 256:.6e} flops and "
+            f"{w_probe['bytes_per_device'] * 256:.6e} bytes, equal to (2)'s "
+            f"direct count; {w3_s:.1f} s ((2) took {w2_s:.1f} s)")
+
+        # (1) and (4): each subprocess must exit 0 with its OK line
+        for name, (started, proc) in w_procs.items():
+            out, err = proc.communicate(timeout=600)
+            secs = time.perf_counter() - started
+            lines = out.strip().splitlines()
+            ok = [ln for ln in lines if ln.startswith(("OK", "[sam-dryrun] "
+                                                       "all"))]
+            if proc.returncode or not ok:
+                raise AssertionError(f"(w) {name} exited "
+                                     f"{proc.returncode}: {out[-1500:]} "
+                                     f"{err[-1500:]}")
+            for line in lines:
+                if line.startswith("kernel launches:"):
+                    for k, v in json.loads(line.split(":", 1)[1]).items():
+                        per_phase["w"][k] += v
+            w_runs[name] = {"ok_line": ok[-1], "seconds": secs}
+            log(f"[w] {'(1)' if name == 'dryrun --sam' else '(4)'} {name}: "
+                f"{ok[-1]} (done within {secs:.1f} s)")
+    finally:
+        for _, proc in w_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # (1)'s cells: all 16, each equal to the oracle, and a reduce kernel
+    # launched
+    w_cells = json.loads(w_json.read_text())
+    w_arrays = synthetic_operands(
+        w_parse(W_SAM), w_dims,
+        resolve_densities(w_parse(W_SAM), W_SAM_DENSITY))
+    w_nnz = int(np.count_nonzero(oracle(W_SAM, w_arrays)))
+    if (len(w_cells) != 16
+            or any("error" in c or not c["equals_oracle"]
+                   or c["engine_nnz"] != w_nnz for c in w_cells)
+            or per_phase["w"]["scatter_workspace"]
+            + per_phase["w"]["segment_reduce"] < 1
+            or per_phase["w"]["spmm_bsr"] < 1):
+        raise AssertionError(f"(w) cells {w_cells}, launches "
+                             f"{per_phase['w']}")
+    w_cycles = [c["cycles"]["paper"] for c in w_cells]
+    log(f"[w] (1) dryrun --sam {W_SAM!r} at {w_dims}, density "
+        f"{W_SAM_DENSITY} ({int(np.count_nonzero(w_arrays['B']))} and "
+        f"{int(np.count_nonzero(w_arrays['C']))} nonzeros): "
+        f"{len(w_cells)} format cells on the card, each equal to the "
+        f"oracle ({w_nnz} nonzeros), cycles under "
+        f"{len(w_cells[0]['cycles'])} presets (paper {min(w_cycles)}-"
+        f"{max(w_cycles)})")
+    workloads["launch tools (w)"] = {
+        "first_ms": (time.perf_counter() - w_start) * 1e3,
+        "sam_cells": w_cells, "lm_s": w2_s, "probe_s": w3_s,
+        "lm_cells": [{k: v for k, v in rec.items() if k != "roofline"}
+                     | rec["roofline"] for rec in w_lm.values()],
+        "probe": w_probe, "subprocesses": w_runs}
+    log(f"[w] launches {per_phase['w']} ((1) and the examples); phase "
+        f"{time.perf_counter() - w_start:.1f} s")
+
     # the model blocks' and the serving path's launches join the kernels
     # line
     for row in kernels:
         row["launches"] += sum(per_phase[t][row["name"]]
                                for t in ("s", "t2", "t3", "t3s", "u",
-                                         "v", "q", "r"))
+                                         "v", "q", "r", "w"))
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

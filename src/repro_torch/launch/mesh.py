@@ -4,6 +4,10 @@ The port's counterpart of the reference's ``launch/mesh.py``, which builds a
 ``jax.sharding.Mesh``. A ``Mesh`` here is the shape, the axis names and
 the array of devices, which is all the distributed tile driver reads.
 Building one touches no device state beyond counting the CUDA devices.
+``make_production_mesh`` gives the production meshes' shapes and axis
+names over meta devices, for the dry-run's per-device reckoning; the
+sharding rules read only ``shape`` and ``axis_names``, and placing a tree
+on such a mesh raises (``distributed.sharding.place``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,18 @@ def _device_array(devs) -> np.ndarray:
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return arr
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single-pod: 16x16 = 256 devices (data x model). Multi-pod:
+    2x16x16 = 512 (pod x data x model); the pod axis extends the DP/FSDP
+    group. Every device is ``torch.device("meta")``: the mesh carries the
+    shape and the axis names, and nothing can be placed on it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    return Mesh(_device_array([torch.device("meta")] * n).reshape(shape),
+                axes)
 
 
 def make_host_mesh(*, device=None) -> Mesh:

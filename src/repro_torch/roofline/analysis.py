@@ -3,10 +3,14 @@
     compute  t = operations / peak operation rate of their type
     memory   t = bytes moved / HBM bandwidth
 
-A port of ``model_flops`` and ``kernel_roofline`` from
+A port of ``model_flops``, ``kernel_roofline`` and ``analyze_cell`` from
 ``repro.roofline.analysis``, with the H100's rates in place of the
-TPU v5e's. The reference's readers of a compiled JAX artefact
-(``analyze_cell``, ``collective_bytes``) have no counterpart here.
+TPU v5e's. ``analyze_cell`` reads what ``launch.dryrun.lower_cell``
+counted over one run of a step on meta tensors, not a compiled
+artefact; the reference's readers of the optimized HLO text
+(``collective_bytes``, ``major_bytes``) have no counterpart, and there is
+no collective term until lanes over several devices give the port
+collectives (ROADMAP.md, #5).
 Which rate a kernel's operations run at is the caller's choice:
 ``H100_BF16_FLOPS`` for bfloat16 products on the tensor cores,
 ``H100_3XTF32_FLOPS`` for float32 products as three TF32 passes (what
@@ -21,10 +25,41 @@ H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 H100_TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
+H100_HBM_BYTES = 80 * 10 ** 9    # the data sheet's 80 GB of HBM3
 
 __all__ = ["H100_HBM_BW", "H100_BF16_FLOPS", "H100_TF32_FLOPS",
-           "H100_3XTF32_FLOPS", "H100_FP32_FLOPS", "model_flops",
-           "kernel_roofline"]
+           "H100_3XTF32_FLOPS", "H100_FP32_FLOPS", "H100_HBM_BYTES",
+           "analyze_cell", "model_flops", "kernel_roofline"]
+
+
+def analyze_cell(cost: Dict, meta: Dict) -> Dict:
+    """The roofline record of one dry-run cell, from the global counts of
+    ``lower_cell``'s step run (``cost``: ``"flops"`` and ``"bytes
+    accessed"``) and its ``meta`` (``"n_devices"``).
+
+    ``flops_per_device`` and ``bytes_per_device`` are the global counts
+    split evenly over the mesh's devices; XLA's figures in the reference
+    are those of the partitioned module, which may differ from an even
+    split. Compute runs at the bf16 tensor-core rate (the steps compute in
+    bfloat16), memory at the HBM rate. ``t_collective`` is None: the
+    port has no collectives yet, so ``bottleneck`` is compute or memory.
+    """
+    n_dev = max(int(meta.get("n_devices", 1)), 1)
+    flops_dev = float(cost.get("flops", 0.0)) / n_dev
+    bytes_dev = float(cost.get("bytes accessed", 0.0)) / n_dev
+    t_compute = flops_dev / H100_BF16_FLOPS
+    t_memory = bytes_dev / H100_HBM_BW
+    t_step = max(t_compute, t_memory)
+    return {
+        "flops_per_device": flops_dev,
+        "bytes_per_device": bytes_dev,
+        "collective_bytes_per_device": None,
+        "t_compute": t_compute, "t_memory": t_memory,
+        "t_collective": None,
+        "bottleneck": "compute" if t_compute >= t_memory else "memory",
+        "t_step_bound": t_step,
+        "roofline_fraction": (t_compute / t_step) if t_step > 0 else 0.0,
+    }
 
 
 def model_flops(n_params_active: int, tokens: int, kind: str) -> float:

@@ -14,6 +14,12 @@
 * ``test_tiled_partials_merge_to_golden_streams``: per-tile partial COOs
   of the port's ``TiledExpr``, merged through the same union-reduce entry,
   reproduce the goldens too.
+* ``tests/test_program_golden.py``: the fused SDDMM->SpMM program
+  simulated by the port's copies (``core.program``, ``core.streams``):
+  the producer's writer tokens crossing the splice equal the unfused
+  consumer's rescanned tokens; the fused output tokens equal the unfused
+  ones, the reference simulator's and the numpy oracle; empty operands
+  flow through the splice as empty streams.
 
 Integer-valued data, so every comparison is exact.
 """
@@ -31,7 +37,11 @@ from repro.core.schedule import Format as RFormat  # noqa: E402
 from repro.core.schedule import Schedule as RSchedule  # noqa: E402
 from repro.core.simulator import Simulator as RSimulator  # noqa: E402
 from test_split_golden import decode_writer_tokens as rdecode  # noqa: E402
+from repro.core.program import simulate_program as rsimulate_program  # noqa: E402
+from repro_torch.core import graph as g  # noqa: E402
 from repro_torch.core import streams as st  # noqa: E402
+from repro_torch.core.program import (numpy_reference,  # noqa: E402
+                                      simulate_program, writer_streams)
 from repro_torch.core.custard import lower  # noqa: E402
 from repro_torch.core.einsum import parse  # noqa: E402
 from repro_torch.core.schedule import Format, Schedule  # noqa: E402
@@ -201,3 +211,87 @@ def test_tiled_partials_merge_to_golden_streams():
     eng._union_reduce = kops._keyed_union_reduce_cuda
     assert eng.n_tiles > 1 and eng._key_bound is not None
     assert _as_dict(eng(arrays), len(assign.lhs.vars)) == golden
+
+
+# -- the program goldens (tests/test_program_golden.py), on the port -------
+
+PROGRAM = ("T(i,j) = B(i,j) * C(i,k) * D(j,k); "
+           "A(i,j) = T(i,k) * E(k,j)")
+PROGRAM_SCHEDULES = {"T": ("i", "j", "k"), "A": ("i", "k", "j")}
+PROGRAM_DIMS = {"i": 9, "j": 9, "k": 9}
+
+
+def _program_arrays(n=9, density=0.35, seed=7):
+    rng = np.random.default_rng(seed)
+    return {t: ((rng.random((n, n)) < density)
+                * rng.integers(1, 9, (n, n))).astype(float)
+            for t in "BCDE"}
+
+
+def _simulate_program(arrays, fuse=True, ref=False):
+    fmt, sch = (RFormat, RSchedule) if ref else (Format, Schedule)
+    return (rsimulate_program if ref else simulate_program)(
+        PROGRAM, fmt(default="c"),
+        {t: sch(loop_order=o) for t, o in PROGRAM_SCHEDULES.items()},
+        PROGRAM_DIMS, arrays, fuse=fuse)
+
+
+def _scanner_tokens(simres, tensor):
+    """The wire crd tokens each level scanner of ``tensor`` emits."""
+    scans = sorted((n for n in simres.graph.of_kind(g.LEVEL_SCAN)
+                    if n.params.get("tensor") == tensor),
+                   key=lambda n: n.params["mode"])
+    return [st.nested_to_tokens(simres.edge_streams[(n.id, "crd")])
+            for n in scans]
+
+
+def test_program_splice_boundary_equals_rescanned_tokens():
+    arrays = _program_arrays()
+    fused = _simulate_program(arrays)
+    unfused = _simulate_program(arrays, fuse=False)
+
+    # the tokens crossing the splice = the producer's writer streams
+    crds, vals = writer_streams(fused.stage("T").sim_result, "T",
+                                fused.lowered.stages[0].lowered.result_vars)
+    spliced = [st.nested_to_tokens(c) for c in crds]
+    rescanned = _scanner_tokens(unfused.stage("A").sim_result, "T")
+    assert len(spliced) == len(rescanned) == 2
+    for lvl, (a, b) in enumerate(zip(spliced, rescanned)):
+        assert a == b, f"level {lvl} splice tokens != rescan tokens"
+
+    flat_vals = [v for v in st.flatten(vals) if v is not None]
+    ref_T = numpy_reference(PROGRAM, arrays)["T"]
+    np.testing.assert_allclose(
+        sorted(flat_vals), sorted(ref_T[ref_T != 0.0]), err_msg="splice vals")
+
+
+def test_program_fused_output_tokens_equal_unfused_and_oracle():
+    arrays = _program_arrays()
+    want = numpy_reference(PROGRAM, arrays)["A"]
+    fused = _simulate_program(arrays)
+    unfused = _simulate_program(arrays, fuse=False)
+    assert [d.fused for d in fused.decisions] == [True]
+    assert [d.fused for d in unfused.decisions] == [False]
+
+    rvars = fused.lowered.stages[1].lowered.result_vars
+    golden_fused = decode_writer_tokens(fused.stage("A").sim_result, "A",
+                                        rvars)
+    assert golden_fused == decode_writer_tokens(
+        unfused.stage("A").sim_result, "A", rvars), \
+        "merged token streams diverge"
+    ref = _simulate_program(arrays, ref=True)
+    assert golden_fused == rdecode(ref.stage("A").sim_result, "A", rvars)
+
+    dense = np.zeros_like(want)
+    for (i, j), v in golden_fused.items():
+        dense[i, j] = v
+    np.testing.assert_allclose(dense, want)
+
+
+def test_program_fused_output_tokens_under_empty_operands():
+    arrays = {t: np.zeros((9, 9)) for t in "BCDE"}
+    fused = _simulate_program(arrays)
+    rvars = fused.lowered.stages[1].lowered.result_vars
+    assert decode_writer_tokens(fused.stage("A").sim_result, "A",
+                                rvars) == {}
+    np.testing.assert_allclose(fused.dense["A"], 0.0)

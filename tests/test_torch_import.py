@@ -59,7 +59,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.models.model", "repro_torch.train.optimizer",
             "repro_torch.train.train_step", "repro_torch.data.pipeline",
             "repro_torch.distributed.checkpoint", "repro_torch.launch.specs",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline_sweep",
+            "repro_torch.roofline.probe",
+            "repro_torch.roofline.analysis"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
