@@ -5,6 +5,9 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --phase-x`` runs phase (x) alone (on a host with
+several cards, where its lane mesh takes four distinct ones).
+
 Drives the port's paths end to end on the card: expressions
 (``repro_torch.core.torch_backend.compile_expr`` -> ``CompiledExpr``,
 ``TiledExpr`` under a memory budget, or ``BsrEngine``; ``schedule="auto"``
@@ -216,6 +219,26 @@ Phases:
       extrapolation must equal (2)'s direct count; (4) the four
       ``examples/torch_*.py`` as subprocesses on the card, each exiting 0
       with its OK line; (1) and (4) start first and overlap (2) and (3);
+  (x) after (w), last: lanes and placement over several devices. (1)
+      (m)'s product (4096^3 at 0.5%) and (d2)'s (1024^3 at 1%), each with
+      split {i: 4} and parallelize {i: 4}, through compile_expr(...,
+      shard_lanes=4): the lanes over a lane mesh of four (four distinct
+      cards where the host has them, else cuda:0 repeated four times
+      through $SAM_LANE_DEVICES, which the log names), each result equal
+      to (m)'s and (d2)'s and to the float64 oracle, sharded_dispatches
+      >= 1, segment_reduce and scatter_workspace launched, the warm median
+      of 3 beside (m)'s and (d2)'s; (2) ``python -m torch.distributed.run
+      --standalone --nproc-per-node N -m repro_torch.launch.train --arch
+      qwen3-0.6b --batch 8 --seq 256 --steps 3 --model-parallel M`` (N the
+      host's cards, M 1, or 2 on four cards): qwen3-0.6b whole on DTensors
+      over NCCL, its losses within 1e-5 (relative) of a plain one-process
+      run of the same steps (run beside it; with a data axis over 1 card,
+      the second and third within 1e-4: each shard's bfloat16 gradients
+      round before their sum), and this script with ``--x2-moonshot``
+      under the same launch: one float32 step of moonshot-v1-16b-a3b at 2
+      of 48 layers at full width (one dense layer, one MoE layer of 64
+      experts, top-6) on (4, 32), the loss within 1e-5 and every gradient
+      leaf within 1e-4 of its largest magnitude against the plain step;
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -236,7 +259,9 @@ They are zeroed before (u) and read after it (no kernel launches there),
 and so before and after (v).
 (w)'s launches are those its subprocesses print, each counted from 0
 in its own process ((1) and the examples; a reduce kernel and spmm_bsr
-must have launched); they join the kernels line's.
+must have launched); they join the kernels line's. They are zeroed
+before (x)(1) and read after it: segment_reduce and scatter_workspace
+must have launched there, and their launches join the kernels line's.
 They are zeroed before (s)'s first forward and read after it, and before
 the call of each of (t)'s MoEBlock and two compile_moe_block builds and
 read after it; their launches join the kernels line's.
@@ -251,6 +276,7 @@ from __future__ import annotations
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -350,6 +376,7 @@ GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 
 # (w): the dry-run's SAM cells (16 level-format cells at 48^3 take about
 # 20 s of simulator cycles on the host) and the examples
+X_BATCH, X_SEQ, X_STEPS = 8, 256, 3    # (x)(2)'s qwen3-0.6b run
 W_SAM = "X(i,j) = B(i,k) * C(k,j)"
 W_SAM_N = 48
 W_SAM_DENSITY = 0.1
@@ -839,13 +866,15 @@ def main() -> int:
     n = 1024
     B = sparse_int(rng, (n, n), 0.01)
     C = sparse_int(rng, (n, n), 0.01)
-    run_workload("d2", "SpMSpM 1024 ikj",
-                 expr_engine("X(i,j) = B(i,k) * C(k,j)",
-                             {"B": "cc", "C": "cc"}, ("i", "k", "j"),
-                             {"i": n, "j": n, "k": n}),
-                 {"B": B, "C": C},
-                 (sp.csr_matrix(B) @ sp.csr_matrix(C)).toarray())
-    del B, C
+    want_d2 = (sp.csr_matrix(B) @ sp.csr_matrix(C)).toarray()
+    got_d2 = run_workload("d2", "SpMSpM 1024 ikj",
+                          expr_engine("X(i,j) = B(i,k) * C(k,j)",
+                                      {"B": "cc", "C": "cc"},
+                                      ("i", "k", "j"),
+                                      {"i": n, "j": n, "k": n}),
+                          {"B": B, "C": C}, want_d2)
+    x_d2 = ({"B": B, "C": C}, want_d2, got_d2)      # (x) runs them again
+    del B, C, want_d2, got_d2
 
     # -- (e) Plus3 -------------------------------------------------------------
     n = 1024
@@ -888,6 +917,7 @@ def main() -> int:
         f"against (d)'s {workloads['SpMSpM 4096 ikj']['warm_ms']:.3f} "
         f"({lanes_m['warm_ms'] / workloads['SpMSpM 4096 ikj']['warm_ms']:.3f}"
         f"x); lane_dispatches {lanes_m['stats']['lane_dispatches']}")
+    x_m = (spmspm_d, want_d, got_m)   # (x) runs them again
     del got_d, got_m                  # (p) runs (d)'s operands again
 
     # -- (n) a batch of 16 SpMSpM 1024, one seed a member ---------------------
@@ -2166,7 +2196,7 @@ def main() -> int:
     out_cc = torch.empty((n_brow * bsz, cc.shape[1]), device="cuda")
     turns = paired_ms(
         lambda: spmm_bsr(bm, ci, bp, cc),
-        lambda: _build.call("sam_spmm_bsr_f32", bm32.data_ptr(),
+        lambda: _build.call("sam_spmm_bsr_f32", cc.device, bm32.data_ptr(),
                             ci32.data_ptr(), bp.data_ptr(), cc.data_ptr(),
                             out_cc.data_ptr(), n_brow, bm.shape[1], nnzb,
                             bsz, cc.shape[0], cc.shape[1]))
@@ -2226,7 +2256,7 @@ def main() -> int:
     out_cc = torch.empty((nnzb, sbs, sbs), device="cuda")
     turns = paired_ms(
         lambda: sddmm_bsr(sr, sc, sa, sb, sbs),
-        lambda: _build.call("sam_sddmm_bsr_f32", sr.data_ptr(),
+        lambda: _build.call("sam_sddmm_bsr_f32", sa.device, sr.data_ptr(),
                             sc.data_ptr(), sa.data_ptr(), sb.data_ptr(),
                             out_cc.data_ptr(), nnzb, sbs, sa.shape[1],
                             sa.shape[0], sb.shape[0]))
@@ -2293,10 +2323,10 @@ def main() -> int:
             lambda: bsr_flash_attention(q_all, k_all, v_all, kv_all, bq=bs,
                                         bkv=bs, causal=causal),
             lambda: _build.call(
-                "sam_bsr_attention_f32", kv_all.data_ptr(), q_all.data_ptr(),
-                k_all.data_ptr(), v_all.data_ptr(), out_cc.data_ptr(), heads,
-                s_len, s_len, hd, n_win, win, bs, bs, hd ** -0.5,
-                int(causal)))
+                "sam_bsr_attention_f32", q_all.device, kv_all.data_ptr(),
+                q_all.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                out_cc.data_ptr(), heads, s_len, s_len, hd, n_win, win, bs,
+                bs, hd ** -0.5, int(causal)))
         log(f"[f] bsr_attention at (j) causal={causal}, tensor cores against "
             f"the CUDA-core kernel in turns (new, old, old, new): "
             + ", ".join(f"{t:.4f}" for t in turns) + " ms")
@@ -3335,12 +3365,16 @@ def main() -> int:
     log(f"[w] launches {per_phase['w']} ((1) and the examples); phase "
         f"{time.perf_counter() - w_start:.1f} s")
 
+    # -- (x) lanes and placement over several devices ------------------------
+    phase_x(x_m, x_d2, workloads, per_phase)
+    del x_m, x_d2
+
     # the model blocks' and the serving path's launches join the kernels
     # line
     for row in kernels:
         row["launches"] += sum(per_phase[t][row["name"]]
                                for t in ("s", "t2", "t3", "t3s", "u",
-                                         "v", "q", "r", "w"))
+                                         "v", "q", "r", "w", "x"))
 
     clear_compile_cache()
     summary = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -3368,5 +3402,271 @@ def main() -> int:
     return 0
 
 
+def phase_x(x_m, x_d2, workloads, per_phase) -> None:
+    """(x): lanes and placement over several devices (the module's
+    docstring). ``x_m`` and ``x_d2`` are (operands, float64 oracle,
+    single-device result) of (m)'s and (d2)'s products; ``workloads``
+    holds (m)'s and (d2)'s warm ms; ``per_phase`` gets (x)'s launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import torch_backend as tb
+    from repro_torch.core.schedule import Format, Schedule
+    from repro_torch.kernels import ops as kops
+
+    x_start = time.perf_counter()
+    n_gpus = torch.cuda.device_count()
+
+    # (x)(1) (m)'s and (d2)'s products with their lanes over a lane mesh of
+    # four: distinct cards where the host has four, else cuda:0 four times
+    lane_env = os.environ.get(tb.LANE_DEVICES_ENV)
+    if n_gpus < 4:
+        os.environ[tb.LANE_DEVICES_ENV] = "4"
+    lanes4 = dict(loop_order=("i", "k", "j"), split={"i": 4},
+                  parallelize={"i": 4})
+    x_runs = {}
+    try:
+        kops.reset_launch_counts()
+        for tag, (arrays, want, single), n, base in (
+                ("m", x_m, 4096, "SpMSpM 4096 lanes"),
+                ("d2", x_d2, 1024, "SpMSpM 1024 ikj")):
+            eng = tb.compile_expr("X(i,j) = B(i,k) * C(k,j)",
+                                  Format({"B": "cc", "C": "cc"}),
+                                  Schedule(**lanes4),
+                                  {"i": n, "j": n, "k": n}, shard_lanes=4)
+            got = tree_to_dense(eng(arrays))
+            check_equal(f"(x)(1) {tag} on the lane mesh", got, want)
+            if not np.array_equal(got, single):
+                raise AssertionError(f"(x)(1) {tag} differs from ({tag})")
+            ms = warm_ms(lambda: eng(arrays), reps=3)
+            x_runs[tag] = {"warm_ms": ms, "stats": dict(eng.stats),
+                           "devices": [str(d) for d in eng._lane_devices],
+                           "single_warm_ms": workloads[base]["warm_ms"]}
+            if eng.stats["sharded_dispatches"] < 1:
+                raise AssertionError(f"(x)(1) {tag} stats {eng.stats}")
+            log(f"[x] (1) ({tag})'s product, lanes {{i: 4}} over the lane "
+                f"mesh {x_runs[tag]['devices']}: equals ({tag})'s result "
+                f"and the oracle; warm median {ms:.3f} ms over 3 against "
+                f"({tag})'s {x_runs[tag]['single_warm_ms']:.3f} ms; "
+                f"sharded_dispatches {eng.stats['sharded_dispatches']}")
+        per_phase["x"] = kops.launch_counts()
+    finally:
+        if lane_env is None:
+            os.environ.pop(tb.LANE_DEVICES_ENV, None)
+        else:
+            os.environ[tb.LANE_DEVICES_ENV] = lane_env
+    if (per_phase["x"]["segment_reduce"] < 1
+            or per_phase["x"]["scatter_workspace"] < 1):
+        raise AssertionError(f"(x)(1) launches {per_phase['x']}")
+    log(f"[x] (1) lane mesh of four: "
+        + ("four distinct cards" if n_gpus >= 4 else
+           f"cuda:0 repeated four times ({n_gpus} card(s) on this host)")
+        + f"; launches {per_phase['x']}")
+    # (x)(2) placement: qwen3-0.6b whole under torch.distributed.run on
+    # DTensors (NCCL) against a plain one-process run of the same steps,
+    # then one moonshot-v1-16b-a3b step (2 of 48 layers at full width)
+    # under the same launch against the plain step; the three processes
+    # run together
+    x_mp = 2 if n_gpus >= 4 else 1
+    x_env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    x_tmp = tempfile.mkdtemp()
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(n_gpus)]
+    x_train = ["-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b",
+               "--batch", str(X_BATCH), "--seq", str(X_SEQ), "--steps",
+               str(X_STEPS)]
+    x_cmds = {
+        "sharded": torchrun + x_train + [
+            "--model-parallel", str(x_mp), "--ckpt-dir",
+            os.path.join(x_tmp, "sharded")],
+        "plain": [sys.executable] + x_train + [
+            "--ckpt-dir", os.path.join(x_tmp, "plain")],
+        "moonshot": torchrun + [str(ROOT / "chip_smoke.py"), "--x2-moonshot",
+                                os.path.join(x_tmp, "moonshot.json"),
+                                str(x_mp)]}
+    x_procs = {name: (time.perf_counter(), subprocess.Popen(
+        cmd, cwd=ROOT, env=x_env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for name, cmd in x_cmds.items()}
+    x_out = {}
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    try:
+        for name, (started, proc) in x_procs.items():
+            out, err = proc.communicate(timeout=600)
+            x_out[name] = (out, time.perf_counter() - started)
+            (ROOT / "chiprun_out" / f"x2_{name}.log").write_text(
+                out + "\n--- stderr\n" + err)
+            if proc.returncode:
+                raise AssertionError(
+                    f"(x)(2) {name} exited {proc.returncode} (its output "
+                    f"in chiprun_out/x2_{name}.log): {out[-2000:]} "
+                    + " ".join(ln for ln in err.splitlines()
+                               if "Error" in ln)[-3000:])
+    finally:
+        for _, proc in x_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def losses_of(out):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("[train] losses ")]
+        if len(lines) != 1:
+            raise AssertionError(f"(x)(2) output {out[-2000:]}")
+        return json.loads(lines[0][len("[train] losses "):])
+    x_sharded, x_plain = (losses_of(x_out[k][0]) for k in ("sharded",
+                                                            "plain"))
+    x_errs = [abs(a - b) / abs(b) for a, b in zip(x_sharded, x_plain)]
+    # the first loss comes from the same parameters, so it holds 1e-5;
+    # with a data axis over 1 card each shard's bfloat16 weight gradients
+    # round before their sum, so the later losses hold 1e-4 (1.19e-5
+    # after 2 steps on four H100s, PERF.md); on one card every op is
+    # local and all of them hold 1e-5
+    x_tol = [1e-5] + [1e-5 if n_gpus == x_mp else 1e-4] * (X_STEPS - 1)
+    mesh_line = next(ln for ln in x_out["sharded"][0].splitlines()
+                     if ln.startswith("[train] qwen3-0.6b"))
+    if (len(x_sharded) != X_STEPS
+            or any(e > t for e, t in zip(x_errs, x_tol))):
+        raise AssertionError(f"(x)(2) qwen3-0.6b losses {x_sharded} "
+                             f"against the plain run's {x_plain}")
+    log(f"[x] (2) qwen3-0.6b whole, batch {X_BATCH} x {X_SEQ}, "
+        f"{X_STEPS} steps under torch.distributed.run on {n_gpus} card(s), "
+        f"model parallel {x_mp}, DTensors over NCCL: {mesh_line!r}; "
+        f"losses {x_sharded} against the plain run's {x_plain}, relative "
+        f"differences {[f'{e:.3e}' for e in x_errs]} (tolerances "
+        f"{x_tol}); {x_out['sharded'][1]:.1f} s and "
+        f"{x_out['plain'][1]:.1f} s")
+    x_moon = json.loads(pathlib.Path(x_tmp, "moonshot.json").read_text())
+    shutil.rmtree(x_tmp, ignore_errors=True)
+    if x_moon["loss_err"] > 1e-5 or x_moon["grad_err"] > 1e-4:
+        raise AssertionError(f"(x)(2) moonshot step {x_moon}")
+    log(f"[x] (2) moonshot-v1-16b-a3b, 2 of 48 layers at full width (one "
+        f"dense, one MoE layer of 64 experts, top-6), float32, one step on "
+        f"(4, 32) on DTensors (MoE groups {x_moon['groups']}): loss "
+        f"{x_moon['loss']:.6f}, rel err {x_moon['loss_err']:.3e} against "
+        f"the plain step (1e-5), the largest gradient leaf's error over "
+        f"its largest magnitude {x_moon['grad_err']:.3e} (1e-4); "
+        f"{x_out['moonshot'][1]:.1f} s")
+    workloads["lanes and placement (x)"] = {
+        "first_ms": (time.perf_counter() - x_start) * 1e3,
+        "lanes": x_runs, "qwen3_sharded": x_sharded, "qwen3_plain": x_plain,
+        "qwen3_loss_rel_errs": x_errs, "moonshot": x_moon,
+        "cards": n_gpus, "model_parallel": x_mp}
+    log(f"[x] phase {time.perf_counter() - x_start:.1f} s")
+
+
+
+def moonshot_rank(out_path: str, model_parallel: int) -> int:
+    """(x)(2)'s moonshot-v1-16b-a3b step as one process of
+    ``torch.distributed.run``: 2 of its 48 layers at full width, float32,
+    the parameters and a (4, 32) batch placed over the process group's
+    mesh, the loss and the gradients of one step (remat "dots"); process
+    0 then takes the plain step on its card from the same parameters and
+    batch (the MoE dispatch in as many groups) and writes both errors."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.train.train_step import remat_loss_fn, value_and_grad
+
+    train.start_process_group()
+    mesh = make_host_mesh(model_parallel)
+    sharding.set_activation_policy(mesh)
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=2,
+                              compute_dtype="float32")
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = batch_for_step(cfg, ShapeConfig("x2", 32, 4, "train"), 0)
+    loss, grads = value_and_grad(
+        remat_loss_fn(cfg, "dots"), sharding.place(params, mesh),
+        sharding.place(batch, mesh, sharding.batch_shardings(mesh, batch)))
+    groups = sharding.data_group_size()
+    grads = lm.tree_leaves(sharding.full_tensors(grads))
+    loss = float(sharding.full_tensors(loss))
+    if dist.get_rank() == 0:
+        # the plain step, its MoE dispatch grouped as the mesh groups it
+        devs = np.empty(mesh.size, dtype=object)
+        devs[:] = [torch.device("cuda", 0)] * mesh.size
+        sharding.set_activation_policy(
+            Mesh(devs.reshape(mesh.devices.shape), mesh.axis_names))
+        want_loss, want = value_and_grad(remat_loss_fn(cfg, "dots"), params,
+                                         batch)
+        want = lm.tree_leaves(want)
+        grad_err = max(float((a - b).abs().max()
+                             / max(float(b.abs().max()), 1e-30))
+                       for a, b in zip(grads, want))
+        pathlib.Path(out_path).write_text(json.dumps({
+            "loss": loss, "loss_err": abs(loss - float(want_loss))
+            / abs(float(want_loss)), "grad_err": grad_err,
+            "groups": groups, "leaves": len(want)}))
+    sharding.set_activation_policy(None)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_x_alone() -> int:
+    """``--phase-x``: phase (x) alone, for a host with several cards. (m)'s
+    and (d2)'s operands are drawn afresh at their shapes and densities,
+    their single-device results and warm ms taken on ``cuda:0``
+    (``shard_lanes=False``) before (x) runs."""
+    import scipy.sparse as sp
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core.schedule import Format, Schedule
+    from repro_torch.core.torch_backend import compile_expr
+    from repro_torch.kernels import _build
+
+    _build.library()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} x {smi[0]}")
+    rng = np.random.default_rng(SEED)
+    workloads, per_phase, runs = {}, {}, {}
+    for tag, label, n, density, par in (
+            ("m", "SpMSpM 4096 lanes", 4096, 0.005, {"i": 4}),
+            ("d2", "SpMSpM 1024 ikj", 1024, 0.01, {})):
+        arrays = {t: sparse_int(rng, (n, n), density) for t in "BC"}
+        want = (sp.csr_matrix(arrays["B"])
+                @ sp.csr_matrix(arrays["C"])).toarray()
+        eng = compile_expr("X(i,j) = B(i,k) * C(k,j)",
+                           Format({"B": "cc", "C": "cc"}),
+                           Schedule(loop_order=("i", "k", "j"), split=par,
+                                    parallelize=par),
+                           {"i": n, "j": n, "k": n}, shard_lanes=False)
+        single = tree_to_dense(eng(arrays))
+        check_equal(f"({tag}) on one card", single, want)
+        workloads[label] = {"warm_ms": warm_ms(lambda: eng(arrays), reps=3)}
+        runs[tag] = (arrays, want, single)
+    phase_x(runs["m"], runs["d2"], workloads, per_phase)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "phase_x.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "workloads": workloads,
+         "launches_by_phase": per_phase}, indent=1))
+    log("\n".join(smi))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--x2-moonshot"]:
+        sys.exit(moonshot_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:] == ["--phase-x"]:
+        sys.exit(phase_x_alone())
     sys.exit(main())

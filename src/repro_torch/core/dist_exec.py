@@ -23,7 +23,7 @@ per-tile engine, while independent TILES spread across workers — a 2-D
 (tiles x lanes) machine.
 
 * **Workers are simulated fabric slots.** ``worker_devices`` lays the
-  logical workers over the host mesh (``launch.mesh.make_host_mesh``;
+  logical workers over the host's devices (``launch.mesh.make_local_mesh``;
   the fan-out axis is the mesh's data-parallel group from
   ``distributed.sharding``). With fewer physical devices than workers —
   one GPU, or the CPU — workers share devices round-robin; with
@@ -87,11 +87,11 @@ import torch
 from . import coord_ops as co
 from . import tiling
 from .fibertree import FiberTree
-from .torch_backend import TiledExpr, compile_expr
+from .torch_backend import TiledExpr, _placed, compile_expr
 from ..distributed import elastic
 from ..distributed.fault_tolerance import StragglerPolicy
 from ..distributed.sharding import data_axes
-from ..launch.mesh import make_host_mesh
+from ..launch.mesh import make_local_mesh
 
 __all__ = ["DistTiledExpr", "DistributedError", "FaultInjector",
            "InjectedFault", "dist_compile", "worker_devices"]
@@ -185,23 +185,14 @@ class _Worker:
 
 def worker_devices(n: int, device=None):
     """Place ``n`` logical workers over the host mesh of ``device``'s
-    kind (``make_host_mesh``: every CUDA device by default, the CPU for
+    kind (``make_local_mesh``: every CUDA device by default, the CPU for
     ``"cpu"``): worker ``i`` gets device ``i mod D`` of the mesh's device
     list (simulated workers share devices when ``n`` exceeds the device
     count). Returns ``(mesh, [device per worker])``; the fan-out axis is
     the mesh's data-parallel group (``distributed.sharding.data_axes``)."""
-    mesh = make_host_mesh(device=device)
+    mesh = make_local_mesh(device=device)
     devs = list(np.asarray(mesh.devices).reshape(-1))
     return mesh, [devs[i % len(devs)] for i in range(n)]
-
-
-def _placed(device) -> torch.device:
-    """``device`` with its index spelled out (``"cuda"`` is the current
-    CUDA device), so two spellings of one device compare equal."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class DistTiledExpr:

@@ -213,17 +213,18 @@ def _engine_kind(engine) -> str:
     if isinstance(engine, (TiledExpr, DistTiledExpr, BsrEngine)):
         return "seq"       # tiles stream sequentially (or fan out over
         #                    workers inside the request); no batch axis
-    # lanes over several GPUs are not ported (the port's CompiledExpr
-    # refuses them), so no engine takes this branch yet
-    if (isinstance(engine, CompiledExpr)
-            and getattr(engine, "_shard_lanes", False)):
+    # a batch keeps its lanes in series, so an engine whose lanes spread
+    # over a lane mesh serves requests one by one (each its own mesh run)
+    if isinstance(engine, CompiledExpr) and engine._shard_lanes:
         return "many"
     return "batch"
 
 
 def _on_device(engine):
     """The engine's CUDA device as the calling thread's current device (a
-    worker thread starts on device 0), or nothing for a CPU engine."""
+    worker thread starts on device 0), or nothing for a CPU engine. An
+    engine over a lane mesh enters each lane device's in turn as it runs
+    that device's lanes."""
     dev = getattr(engine, "device", None)
     if dev is not None and torch.device(dev).type == "cuda":
         return torch.cuda.device(dev)
@@ -276,8 +277,8 @@ class SamServer:
         max_queue: admission bound on the pending-request queue; beyond
             it requests are refused (reason ``"queue-full"``).
         devices: shard parallel lanes of scheduled requests over this
-            many devices (forwarded to ``compile_expr(shard_lanes=)``,
-            which refuses it: lanes over several GPUs are not ported).
+            many devices (forwarded to ``compile_expr(shard_lanes=)``);
+            such an engine serves requests one by one.
         device: where the engines this server compiles run (forwarded to
             ``compile_expr`` and ``compile_program``): CUDA by default,
             an error without a GPU; ``"cpu"`` for the plain PyTorch

@@ -75,12 +75,26 @@ budget the reference's estimate planned for. ``schedule="auto"`` resolves
 through the port's copy of
 ``autoschedule`` (its persistent schedule cache is the port's own file).
 
-Not ported yet: lanes spread over more than one GPU (``shard_lanes``),
-which raises ``NotImplementedError`` naming its ROADMAP.md slice.
+Lanes over several devices (``shard_lanes``, the reference's
+``shard_map`` over a 1-D ``lanes`` mesh of ``jax.devices()[:m]``): one
+``CompiledExpr`` gives each device of the lane mesh
+(``lane_mesh_devices``) a contiguous chunk of each parallelized term's
+lanes, run on operands uploaded to that device; the chunks' partial COOs
+come back to the engine's device by device-to-device copies, where the
+one keyed union reduce merges them as it merges lanes run in series, and
+the result still reaches the host in one transfer. A batch keeps its
+lanes in series (the reference's batch path keeps them vmapped). The
+lane mesh takes distinct devices of the engine's kind (the CUDA devices;
+one CPU); ``$SAM_LANE_DEVICES`` (``LANE_DEVICES_ENV``) raises that count
+by repeating the engine's device, as the reference forces N host
+devices on the CPU, and every engine on such a mesh logs it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -99,9 +113,10 @@ from .schedule import Format, Schedule, build_inputs
 
 PAD = co.PAD_KEY
 
-# what the unported path waits for: its entry in ROADMAP.md's list of
-# what is still to port
-_DIST_SLICE = "ROADMAP.md, still to port #5: lanes over several GPUs"
+# a lane mesh of this many devices of the engine's kind fits even where
+# the host has fewer: the engine's device is repeated (module docstring)
+LANE_DEVICES_ENV = "SAM_LANE_DEVICES"
+_LOG = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -828,34 +843,83 @@ def _member(tensors: Dict[str, JTensor], m: int) -> Dict[str, JTensor]:
             for name, jt in tensors.items()}
 
 
-def lane_mesh_size(par_n: int, bound: Optional[int] = None) -> int:
-    """Largest CUDA device count that can host the lane mesh: the biggest
-    divisor of ``par_n`` no larger than the available GPUs (and the
-    caller's ``bound``, e.g. serve's --devices). 1 means no useful mesh."""
-    n_dev = torch.cuda.device_count()
+def _kind(device) -> str:
+    return torch.device("cuda" if device is None else device).type
+
+
+def _distinct_devices(kind: str) -> int:
+    return torch.cuda.device_count() if kind == "cuda" else 1
+
+
+def lane_device_count(device=None) -> int:
+    """Devices of ``device``'s kind (CUDA by default) a lane mesh can take:
+    the distinct ones (every CUDA device; one CPU), or
+    ``$SAM_LANE_DEVICES`` where that is more (the engine's device
+    repeated)."""
+    kind = _kind(device)
+    return max(_distinct_devices(kind),
+               int(os.environ.get(LANE_DEVICES_ENV) or 0))
+
+
+def lane_mesh_size(par_n: int, bound: Optional[int] = None,
+                   device=None) -> int:
+    """Largest device count that can host the lane mesh: the biggest
+    divisor of ``par_n`` no larger than the devices of ``device``'s kind
+    (``lane_device_count``) and the caller's ``bound`` (e.g. serve's
+    --devices). 1 means no useful mesh."""
+    n_dev = lane_device_count(device)
     limit = min(n_dev, par_n, bound or n_dev)
     return max((d for d in range(1, limit + 1) if par_n % d == 0),
                default=1)
 
 
-def _check_shard_lanes(shard_lanes, par_n: int) -> None:
-    """The port's counterpart of the reference's ``_resolve_shard_lanes``.
-    ``shard_lanes``: None or False runs every lane on the engine's device
-    (a mesh of 1); True (or an int device bound) REQUIRES a mesh of 2 or
-    more GPUs and raises ``ValueError`` when none fits, as the reference
-    does. Spreading lanes over GPUs belongs to the distributed slice, so
-    where a mesh would fit it raises ``NotImplementedError``."""
+def lane_mesh_devices(device, m: int) -> List[torch.device]:
+    """The lane mesh's ``m`` devices for an engine on ``device``: the
+    first ``m`` CUDA devices (``cuda:0`` .. ``cuda:m-1``) where the host
+    has them, else ``device`` repeated ``m`` times (the CPU always, since
+    it is one device), which is logged."""
+    dev = _placed(co.resolve_device(device))
+    if dev.type == "cuda" and m <= torch.cuda.device_count():
+        return [torch.device("cuda", i) for i in range(m)]
+    if m > 1:
+        _LOG.warning("lane mesh of %d: %s repeated %d times (%s=%s)", m,
+                     dev, m, LANE_DEVICES_ENV,
+                     os.environ.get(LANE_DEVICES_ENV))
+    return [dev] * m
+
+
+def _placed(device) -> torch.device:
+    """``device`` with its index spelled out (``"cuda"`` is the current
+    CUDA device), so two spellings of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _resolve_shard_lanes(shard_lanes, par_n: int, device=None) -> int:
+    """One resolver for the lane-mesh size (it is part of the engine cache
+    key, so it must be computed identically everywhere). ``shard_lanes``:
+    None auto-shards whenever a >1-device mesh fits; False forces serial
+    lanes; True (or an int device bound) REQUIRES a mesh and raises when
+    none fits. Returns the mesh size (1 = serial lanes)."""
     if shard_lanes is None or shard_lanes is False:
-        return
+        if shard_lanes is False or par_n <= 1:
+            return 1
+        return lane_mesh_size(par_n, device=device)
     bound = None if shard_lanes is True else int(shard_lanes)
-    m = lane_mesh_size(par_n, bound)
+    m = lane_mesh_size(par_n, bound, device)
     if m < 2:
         raise ValueError(
-            f"cannot shard {par_n} lane(s) over {torch.cuda.device_count()} "
-            f"device(s)" + (f" with --devices {bound}" if bound else "")
-            + f"; lanes over GPUs are not ported yet either ({_DIST_SLICE})")
-    raise NotImplementedError(
-        f"lanes over {m} GPUs are not ported yet ({_DIST_SLICE})")
+            f"cannot shard {par_n} lane(s) over {lane_device_count(device)} "
+            f"device(s)" + (f" with --devices {bound}" if bound else ""))
+    return m
+
+
+def _device_context(dev: torch.device):
+    """``dev`` as the current CUDA device, or nothing for the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 class CompiledExpr:
@@ -910,7 +974,15 @@ class CompiledExpr:
         # results come back in the ORIGINAL coordinate space: split result
         # levels (vo, vi) are re-merged during output assembly
         self._out_merge = self._build_out_merge()
-        _check_shard_lanes(shard_lanes, self.par_n)
+        # lanes over a mesh of devices when one fits the lane count; in
+        # series on ``device`` otherwise. ``shard_lanes``: None = auto,
+        # False = never, True/int = require a mesh (of at most that many
+        # devices) or fail loudly
+        self._lane_mesh = _resolve_shard_lanes(shard_lanes, self.par_n,
+                                               self.device)
+        self._shard_lanes = self._lane_mesh > 1
+        self._lane_devices = (lane_mesh_devices(self.device, self._lane_mesh)
+                              if self._shard_lanes else [self.device])
         self._segsum = None
         self._intersect = None
         self._union_reduce = None
@@ -924,7 +996,8 @@ class CompiledExpr:
                                                     self.device)
             self._mul_reduce = kops.sam_primitive("mul_reduce", self.device)
         self._level_meta: Dict[str, List[Tuple[str, int]]] = {}
-        self._plans: Dict[Tuple, _Plan] = {}
+        self._plans: Dict[Tuple, _Plan] = {}          # lanes in series
+        self._mesh_plans: Dict[Tuple, _Plan] = {}     # over the lane mesh
         self._core_cache: Dict[Tuple, Callable] = {}
         # sticky per-level bucket high-water for batched encodes: a stream
         # of batches whose nnz jitters across buckets settles on ONE
@@ -982,9 +1055,10 @@ class CompiledExpr:
                 and (len(self.graphs) > 1
                      or any(n > 1 for n in self.lane_ns)))
 
-    def _backend(self, ti: int, tensors, lane=None, **caps) -> TorchBackend:
+    def _backend(self, ti: int, tensors, lane=None, device=None,
+                 **caps) -> TorchBackend:
         return TorchBackend(self.graphs[ti], tensors, self.low.dims,
-                            self.rvars, device=self.device,
+                            self.rvars, device=device or self.device,
                             segsum=self._segsum, intersect=self._intersect,
                             mul_reduce=self._mul_reduce, lane=lane, **caps)
 
@@ -1015,7 +1089,18 @@ class CompiledExpr:
             caps["fused"] = _bucket_cap(fused_need)
         return caps
 
-    def _build_core(self, caps: Dict[str, int]) -> Callable:
+    def _lane_chunks(self, ti: int) -> List[Tuple[torch.device, range]]:
+        """(device, lanes) of each device of the lane mesh: a contiguous
+        chunk of term ``ti``'s lanes each (``in_specs=P("lanes")``)."""
+        n, devs = self.lane_ns[ti], self._lane_devices
+        per = -(-n // len(devs))
+        return [(d, range(j * per, min(n, (j + 1) * per)))
+                for j, d in enumerate(devs) if j * per < n]
+
+    def _build_core(self, caps: Dict[str, int], shard: bool) -> Callable:
+        """The plan's function; ``shard`` runs each laned term's lanes in
+        chunks over the lane mesh (single calls), else in series on the
+        engine's device (batches, and engines without a mesh)."""
         union_reduce = self._union_reduce or co.keyed_union_reduce
         scan_caps = [
             {n.id: caps[f"t{ti}.s{n.id}"] for n in G.of_kind(g.LEVEL_SCAN)}
@@ -1026,16 +1111,51 @@ class CompiledExpr:
         for _, d in self._strides:
             bound *= d
 
-        def run_term(ti, tensors, required):
-            """One term's partial. Its lanes run one after another at the
-            plan's per-lane capacities; a lane's needs are maxed."""
+        def run_lanes(ti, tensors, lanes, dev, required):
+            """Partials of term ``ti``'s ``lanes`` on ``dev``, one after
+            another at the plan's per-lane capacities; needs are maxed."""
             parts = []
-            for lane in self._lanes_of(ti):
-                be = self._backend(ti, tensors, lane, scan_caps=scan_caps[ti],
+            for lane in lanes:
+                be = self._backend(ti, tensors, lane, device=dev,
+                                   scan_caps=scan_caps[ti],
                                    out_cap=out_caps[ti])
                 parts.append(be.run_streams())
                 for k, r in be.required.items():
                     _max_into(required, f"t{ti}.{k}", r)
+            return parts
+
+        def run_chunks(ti, on_dev, required):
+            """Term ``ti``'s lanes in chunks over the lane mesh: every
+            chunk is issued on its device first, then the partials and
+            needs come to the engine's device."""
+            chunks = []
+            for dev, lanes in self._lane_chunks(ti):
+                req: Dict[str, torch.Tensor] = {}
+                with _device_context(dev):
+                    chunks.append((run_lanes(ti, on_dev(dev), lanes, dev,
+                                             req), req))
+            parts = []
+            for chunk, req in chunks:
+                for k, r in req.items():
+                    _max_into(required, k, r.to(self.device))
+                if self._scalar:
+                    parts += [v.to(self.device) for v in chunk]
+                else:
+                    parts.append(COOResult(
+                        *(torch.cat([getattr(c, f) for c in chunk])
+                          .to(self.device) for f in ("keys", "vals",
+                                                      "valid")),
+                        list(self._strides)))
+            return parts
+
+        def run_term(ti, on_dev, required):
+            """One term's partial: its lanes in series on the engine's
+            device, or in chunks over the lane mesh."""
+            if shard and self.lane_ns[ti] > 1:
+                parts = run_chunks(ti, on_dev, required)
+            else:
+                parts = run_lanes(ti, on_dev(self.device), self._lanes_of(ti),
+                                  self.device, required)
             if len(parts) == 1:
                 return parts[0]
             if self._scalar:
@@ -1045,9 +1165,9 @@ class CompiledExpr:
                              torch.cat([c.valid for c in parts]),
                              list(self._strides))
 
-        def run(tensors):
+        def run(on_dev):
             required: Dict[str, torch.Tensor] = {}
-            outs = [run_term(ti, tensors, required)    # COOResult or scalar
+            outs = [run_term(ti, on_dev, required)     # COOResult or scalar
                     for ti in range(len(self.graphs))]
             if self._scalar:
                 total = signs[0] * outs[0]
@@ -1074,15 +1194,23 @@ class CompiledExpr:
             return {"keys": uk, "vals": uv, "valid": uvalid}, required
 
         def core(stacked):
-            """A batch-stacked operand set (one upload per array; a single
-            call is a batch of one): the members run one after another on
-            the same plan, their results stacked along a leading axis and
-            their needs maxed."""
-            tensors = self._tensors_from_flat(stacked)
+            """A batch-stacked operand set (one upload per array and device;
+            a single call is a batch of one): the members run one after
+            another on the same plan, their results stacked along a leading
+            axis and their needs maxed."""
+            here = self._tensors_from_flat(stacked)
+            uploads = {_placed(self.device): here}
+
+            def on(dev):
+                dev = _placed(dev)
+                if dev not in uploads:          # a lane device's operands
+                    uploads[dev] = _tensors_from_flat_arrays(
+                        stacked, self._level_meta, dev)
+                return uploads[dev]
             required: Dict[str, torch.Tensor] = {}
             outs = []
-            for m in range(next(iter(tensors.values())).vals.shape[0]):
-                out, req = run(_member(tensors, m))
+            for m in range(next(iter(here.values())).vals.shape[0]):
+                out, req = run(lambda dev, _m=m: _member(on(dev), _m))
                 outs.append(out)
                 for k, r in req.items():
                     _max_into(required, k, r)
@@ -1093,33 +1221,39 @@ class CompiledExpr:
 
         return core
 
-    def _install_plan(self, sig, caps: Dict[str, int]) -> _Plan:
-        core_key = (sig, tuple(sorted(caps.items())))
+    def _install_plan(self, sig, caps: Dict[str, int], shard: bool = False
+                      ) -> _Plan:
+        core_key = (sig, tuple(sorted(caps.items())), shard)
         fn = self._core_cache.get(core_key)
         if fn is None:
-            fn = self._build_core(caps)
+            fn = self._build_core(caps, shard)
             self._core_cache[core_key] = fn
             self.stats["traces"] += 1
         plan = _Plan(caps=caps, fn=fn)
-        self._plans[sig] = plan
+        (self._mesh_plans if shard else self._plans)[sig] = plan
         return plan
 
-    def _dispatch(self, sig, stacked, rep_flat):
+    def _dispatch(self, sig, stacked, rep_flat, batch: bool):
         """One plan-cached execution of a batch-stacked operand set; a miss
-        records capacities on ``rep_flat``. Returns the keyed-COO ``out``
-        as host arrays with a leading member axis."""
+        records capacities on ``rep_flat``. A single call's lanes go over
+        the lane mesh, a batch's stay in series. Returns the keyed-COO
+        ``out`` as host arrays with a leading member axis."""
+        shard = self._shard_lanes and not batch
         if any(n > 1 for n in self.lane_ns):
             self.stats["lane_dispatches"] += 1
-        plan = self._plans.get(sig)
+            if shard:
+                self.stats["sharded_dispatches"] += 1
+        plan = (self._mesh_plans if shard else self._plans).get(sig)
         fresh = plan is None
         if fresh:
             self.stats["plan_misses"] += 1
-            plan = self._install_plan(sig, self._record_caps([rep_flat]))
+            plan = self._install_plan(sig, self._record_caps([rep_flat]),
+                                      shard)
         else:
             self.stats["plan_hits"] += 1
         return _run_with_growth(
             plan, stacked, self.stats,
-            lambda caps: self._install_plan(sig, caps), fresh)
+            lambda caps: self._install_plan(sig, caps, shard), fresh)
 
     # -- output assembly ---------------------------------------------------
     def _assemble_out(self, out) -> FiberTree:
@@ -1220,7 +1354,7 @@ class CompiledExpr:
         """One single call, run as a batch of one; returns its keyed-COO
         ``out`` as host arrays."""
         self.stats["calls"] += 1
-        out = self._dispatch(sig, _stack_flats([flat]), flat)
+        out = self._dispatch(sig, _stack_flats([flat]), flat, batch=False)
         return {k: v[0] for k, v in out.items()}
 
     def __call__(self, arrays: Dict[str, np.ndarray]) -> FiberTree:
@@ -1289,7 +1423,8 @@ class CompiledExpr:
         host in one transfer. Returns the keyed-COO ``out`` for
         ``decode_batch``."""
         self.stats["batch_calls"] += 1
-        return self._dispatch(enc.sig, enc.stacked, enc.flats[enc.rep])
+        return self._dispatch(enc.sig, enc.stacked, enc.flats[enc.rep],
+                              batch=True)
 
     def decode_batch(self, enc: EncodedBatch, out) -> List[FiberTree]:
         """Host-side stage 3: one ``FiberTree`` per batch member."""
@@ -1557,11 +1692,12 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
             ``kernels/ops`` dispatch table (the CUDA kernels on a GPU).
         device: where the engine runs; CUDA by default, and an error when
             there is no GPU (pass ``device="cpu"`` for the CPU).
-        shard_lanes: §4.4 lane placement. None or False runs every lane
-            of a ``parallelize`` schedule on ``device``; True (or an int
-            device bound) requires a mesh of GPUs: ``ValueError`` when
-            none fits, ``NotImplementedError`` where one would (lanes over
-            GPUs belong to the distributed slice).
+        shard_lanes: §4.4 lane placement. None spreads the lanes of a
+            ``parallelize`` schedule over a mesh of devices of
+            ``device``'s kind whenever one of 2 or more fits
+            (``lane_mesh_size``; ``lane_mesh_devices``); False runs them
+            in series on ``device``; True (or an int device bound)
+            requires a mesh and raises ``ValueError`` when none fits.
         sparsity: density hint for ``schedule="auto"`` and the memory
             estimator (float or per-tensor dict; defaults to
             ``autoschedule.DEFAULT_SPARSITY``).
@@ -1608,21 +1744,20 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
     """
     if mem_budget is not None:
         mem_budget = tiling.parse_budget(mem_budget)
+    dev = co.resolve_device(device)
     if isinstance(schedule, str):
         if schedule != "auto":
             raise ValueError(
                 f"schedule must be a Schedule or 'auto', got {schedule!r}")
         from .autoschedule import resolve_schedule
-        # the search ranks under the parallelism this engine will run.
-        # With shard_lanes None or False the port runs every lane on one
-        # device (_check_shard_lanes), so it searches for one device; the
-        # reference passes None there, its host's device count, which is 1
-        # on the CPU and on a one-GPU machine too. True or an int asks for
-        # a mesh, as in the reference (and is refused below)
-        if shard_lanes is None or shard_lanes is False:
+        # the search must rank under the parallelism this engine will
+        # actually run: shard_lanes=False executes serially regardless of
+        # the host's device count, an int bounds the mesh; None and True
+        # take the host's devices of the engine's kind
+        if shard_lanes is False:
             n_dev = 1
-        elif shard_lanes is True:
-            n_dev = None                     # the host's CUDA devices
+        elif shard_lanes is None or shard_lanes is True:
+            n_dev = lane_device_count(dev)
         else:
             n_dev = int(shard_lanes)
         # auto_tile=False means "refuse rather than tile": keep the budget
@@ -1632,7 +1767,6 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
               else {"mem_budget": mem_budget})
         schedule = resolve_schedule(expr, fmt, dims, sparsity=sparsity,
                                     device_count=n_dev, **kw).schedule
-    dev = co.resolve_device(device)
     assign = parse(expr) if isinstance(expr, str) else expr
 
     # recognized block-sparse contractions run on the BSR kernels end to
@@ -1647,11 +1781,12 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
             _BSR[bkey] = beng
         return beng
 
-    # resolved before keying, so a refused lane placement never returns a
-    # cached engine
+    # resolve the lane-mesh size BEFORE keying, so shard_lanes=None and an
+    # explicit equivalent request share one engine (and its plan caches),
+    # and a refused lane placement never returns a cached engine
     par_n = max([n for n in schedule.parallelize.values() if n > 1],
                 default=1)
-    _check_shard_lanes(shard_lanes, par_n)
+    mesh = _resolve_shard_lanes(shard_lanes, par_n, dev)
 
     # -- memory-budget gate + tiled routing (DESIGN.md §7) ----------------
     if mem_budget is not None or schedule.tile:
@@ -1674,7 +1809,7 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
             # densities steer the per-tile budget check, so they partition
             # the tiled-engine cache
             tkey = (expr_cache_key(assign, fmt, schedule, dims),
-                    use_kernels, str(dev), mem_budget,
+                    use_kernels, str(dev), mesh, mem_budget,
                     tuple(sorted(densities.items())) if densities
                     else None)
             teng = _TILED.get(tkey)
@@ -1686,11 +1821,13 @@ def compile_expr(expr, fmt: Format, schedule, dims: Dict[str, int], *,
                 _TILED[tkey] = teng
             return teng
 
-    key = (expr_cache_key(assign, fmt, schedule, dims), use_kernels, str(dev))
+    key = (expr_cache_key(assign, fmt, schedule, dims), use_kernels, str(dev),
+           mesh)
     eng = _COMPILED.get(key)
     if eng is None:
         eng = CompiledExpr(assign, fmt, schedule, dims,
-                           use_kernels=use_kernels, device=dev)
+                           use_kernels=use_kernels, device=dev,
+                           shard_lanes=shard_lanes)
         _COMPILED[key] = eng
     return eng
 

@@ -15,9 +15,16 @@ leaf to host numpy before it returns (the writer thread reads only those
 copies, never a tensor the next step may change); bfloat16 and float8
 leaves are saved as float32 and cast back to the template's dtype on
 restore, each leaf put on its template leaf's device. One process writes
-one shard (``shard_0``). ``seconds`` holds the wall seconds of the last
-save's host copy (``"copy"``) and write (``"write"``, in the writer
-thread) and of the last restore (``"restore"``).
+one shard (``shard_0``). A state placed over a process group's mesh
+(DTensor leaves) saves in the same layout, leaf for leaf whole: every
+process's ``save`` is a collective that gathers each leaf, process 0
+alone writes, and ``wait`` is a barrier after the write, so that every
+process then sees the checkpoint; a restore places each leaf as its
+template leaf is placed (the current mesh's specs), so a checkpoint
+moves between meshes and device counts. ``seconds`` holds the wall
+seconds of the last save's host copy (``"copy"``) and write
+(``"write"``, in the writer thread) and of the last restore
+(``"restore"``).
 """
 from __future__ import annotations
 
@@ -30,8 +37,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.model import tree_leaves, tree_unflatten
+from .sharding import full_tensors
 
 __all__ = ["Checkpointer"]
 
@@ -58,20 +68,37 @@ def _flatten(tree) -> dict:
     return out
 
 
+def _like(full: torch.Tensor, tmpl):
+    """A restored leaf with ``tmpl``'s dtype and device, and its placements
+    where it is a DTensor."""
+    t = full.to(device=tmpl.device, dtype=tmpl.dtype)
+    if isinstance(tmpl, DTensor):
+        return distribute_tensor(t, tmpl.device_mesh, tmpl.placements)
+    return t
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._collective = False    # a save over a process group's mesh
         self.seconds = {}
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state, blocking: bool = False) -> None:
         self.wait()
         t0 = time.perf_counter()
-        arrays = _flatten(state)
+        self._collective = any(isinstance(t, DTensor)
+                               for t in tree_leaves(state))
+        if self._collective:
+            state = full_tensors(state)
+        writer = not self._collective or dist.get_rank() == 0
+        arrays = _flatten(state) if writer else {}
         self.seconds["copy"] = time.perf_counter() - t0
+        if not writer:
+            return
         manifest = {"step": step, "treedef": _structure(state),
                     "n_leaves": len(arrays), "version": 1}
 
@@ -104,6 +131,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._collective:            # every process sees the write
+            dist.barrier()
+            self._collective = False
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -127,7 +157,8 @@ class Checkpointer:
 
     def restore(self, template, step: Optional[int] = None) -> Tuple[object,
                                                                     int]:
-        """Restore into the structure, dtypes and devices of ``template``."""
+        """Restore into the structure, dtypes and devices of ``template``
+        (a DTensor leaf with its placements: a collective)."""
         t0 = time.perf_counter()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -140,9 +171,8 @@ class Checkpointer:
                     f"checkpoint has {len(data.files)} leaves, template "
                     f"{len(leaves)} — elastic reshard required (see "
                     f"elastic.py)")
-            new = [torch.from_numpy(data[f"leaf_{i}"]).to(
-                device=tmpl.device, dtype=tmpl.dtype)
-                for i, tmpl in enumerate(leaves)]
+            new = [_like(torch.from_numpy(data[f"leaf_{i}"]), tmpl)
+                   for i, tmpl in enumerate(leaves)]
         out = tree_unflatten(template, new)
         self.seconds["restore"] = time.perf_counter() - t0
         return out, step

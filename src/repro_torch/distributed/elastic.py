@@ -6,9 +6,10 @@ leaf's spec, and put the state onto it. Divisibility is validated (a
 16-way TP dim cannot move to a 12-way axis), and ``shrink_mesh``
 proposes the mesh that remains after losing hosts.
 
-A port of ``repro.distributed.elastic``. ``reshard`` places a state on a
-mesh of one device; over several devices it raises (ROADMAP.md, still
-to port #5).
+A port of ``repro.distributed.elastic``. ``reshard`` goes through each
+leaf whole (``sharding.full_tensors``, a collective over the old mesh's
+process group) to the new mesh's placements (``sharding.place``), after
+``validate_mesh_for``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..launch.mesh import Mesh
-from .sharding import map_with_path, params_shardings, place
+from .sharding import full_tensors, map_with_path, params_shardings, place
 
 __all__ = ["validate_mesh_for", "reshard", "shrink_mesh"]
 
@@ -50,12 +51,13 @@ def validate_mesh_for(params, mesh: Mesh) -> list:
 
 
 def reshard(state, new_mesh: Mesh):
-    """Re-lay-out ``state`` onto ``new_mesh`` (a mesh of one device)."""
+    """Re-lay-out ``state`` onto ``new_mesh``: every leaf whole, then
+    placed by ``new_mesh``'s specs."""
     problems = validate_mesh_for(state, new_mesh)
     if problems:
         raise ValueError(f"mesh {dict(new_mesh.shape)} incompatible: "
                          f"{problems[:3]} (+{max(0, len(problems)-3)} more)")
-    return place(state, new_mesh)
+    return place(full_tensors(state), new_mesh)
 
 
 def shrink_mesh(mesh: Mesh, failed_hosts: int, devices_per_host: int

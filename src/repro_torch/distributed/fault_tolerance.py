@@ -14,9 +14,10 @@ The contract:
 A port of ``repro.distributed.fault_tolerance``. A step's time given to
 the watchdog includes the card's work: the runner synchronizes the
 metrics' device before it stops the clock (the reference's
-``jax.block_until_ready``). Resuming onto a different device count
-(``elastic.reshard``) waits for placement over several devices
-(ROADMAP.md, still to port #5).
+``jax.block_until_ready``). A state placed over a process group's mesh
+checkpoints and resumes through the same runner (every process runs it;
+``checkpoint.py``), onto the same mesh or, through the template's
+placements, another.
 """
 from __future__ import annotations
 

@@ -19,32 +19,57 @@ mesh's ``shape`` and ``axis_names`` (``launch.mesh.Mesh``, or any object
 with those two). A spec is a tuple with one entry a dim: None, an axis
 name, or a tuple of names, normalized as ``PartitionSpec`` holds them (a
 tuple of one name is that name, an empty tuple None). A path is the keys
-from the root joined by ``/``. ``place`` puts a tree on a mesh of one
-device; placing by the specs over several devices, the activation policy
-(``set_activation_policy``/``shard_activation``) and the grouped
-expert-parallel dispatch wait for lanes over several devices (ROADMAP.md,
-still to port #5): on one device they would change nothing.
+from the root joined by ``/``.
+
+Placement is PyTorch's SPMD counterpart of ``jax.device_put(tree,
+NamedSharding)``: one process a device under ``torch.distributed``, the
+mesh's ``DeviceMesh`` over the process group, and each leaf a
+``DTensor`` whose placements follow its spec (``spec_placements``: for
+each mesh axis ``Shard(d)`` where the axis names tensor dim ``d``,
+``Replicate()`` elsewhere). ``place`` does that on every mesh that
+carries a process group, one of size 1 included, and moves plain tensors
+on a mesh of one device without one. The model gathers placed
+parameters where it uses them (``gathered``: a layer's at a time, as
+ZeRO-3 does), so its activations are sharded over the batch only, a
+layout DTensor carries through every op of the stack; the MoE expert
+FFN still runs sharded over the experts. The activation policy
+(``set_activation_policy``, ``data_group_size``, ``shard_activation``)
+is the reference's: ``shard_activation`` redistributes a DTensor to its
+fitted spec's placements, and is the identity on a plain tensor or
+without a policy. The model code mixes a DTensor with the plain tensors
+it builds (positions, masks) inside ``spmd_region``, which takes them as
+replicated.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..launch.mesh import Mesh
-from ..models.model import tree_map
 
 __all__ = ["data_axes", "path_str", "param_spec", "params_shardings",
            "batch_spec", "batch_shardings", "cache_spec", "cache_shardings",
-           "map_with_path", "place"]
+           "map_with_path", "spec_placements", "place", "gathered",
+           "full_tensors",
+           "spmd_region", "set_activation_policy", "data_group_size",
+           "shard_activation"]
 
 # parameter-name suffixes that are ROW parallel (contract model-sharded dim)
 _ROW_PARALLEL = ("wo", "w_down", "out_proj")
 # names that carry a leading expert axis
 _EXPERT = ("w_gate", "w_up", "w_down")
 _REPLICATE_SMALL = 2 ** 16
-_MULTI_DEVICE = ("placement over several devices is still to port "
-                 "(ROADMAP.md, #5)")
+_LAUNCH = ("placing on a mesh of {n} devices takes one process a device "
+           "under torch.distributed: launch with `python -m "
+           "torch.distributed.run --standalone --nproc-per-node {n} -m "
+           "repro_torch.launch.train ...` and build the mesh with "
+           "launch.mesh.make_host_mesh")
 
 Spec = Tuple[Any, ...]
 
@@ -158,7 +183,8 @@ def batch_spec(mesh: Mesh, ndim: int, seq_shard: bool = False) -> Spec:
 
 
 def batch_shardings(mesh: Mesh, batch, seq_shard: bool = False):
-    return tree_map(lambda a: batch_spec(mesh, a.ndim, seq_shard), batch)
+    return map_with_path(lambda _, a: batch_spec(mesh, a.ndim, seq_shard),
+                         batch)
 
 
 _STACKED_CACHE_SEGS = ("layers", "dense_layers", "mlstm", "mamba")
@@ -202,11 +228,173 @@ def cache_shardings(mesh: Mesh, caches, batch_sharded: bool = True):
         mesh, path_str(path), tuple(leaf.shape), batch_sharded), caches)
 
 
-def place(tree, mesh: Mesh):
-    """``tree``'s tensors on ``mesh``: its device, for a mesh of one
-    device; ``NotImplementedError`` for more."""
-    if mesh.size != 1:
-        raise NotImplementedError(f"a mesh of {mesh.size} devices: "
-                                  f"{_MULTI_DEVICE}")
-    dev = mesh.devices.reshape(-1)[0]
-    return tree_map(lambda t: t.to(dev), tree)
+def spec_placements(spec: Spec, mesh: Mesh) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``, one a mesh axis:
+    ``Shard(d)`` where the axis appears in tensor dim ``d``'s entry (a
+    tuple of axes on one dim shards that dim over each of them),
+    ``Replicate()`` where it appears in none, and on an axis of size 1
+    (one shard is the whole, and DTensor propagates a replicated layout
+    through every op; a sharded one it refuses through some reshapes)."""
+    out = []
+    for axis in mesh.axis_names:
+        p = Replicate()
+        for d, e in enumerate(spec):
+            if mesh.shape[axis] > 1 and (
+                    e == axis or (isinstance(e, tuple) and axis in e)):
+                p = Shard(d)
+        out.append(p)
+    return out
+
+
+def _mesh_device(mesh: Mesh) -> torch.device:
+    return mesh.devices.reshape(-1)[0]
+
+
+def _check_placeable(mesh: Mesh) -> None:
+    if mesh.device_mesh is None and (
+            mesh.size != 1 or _mesh_device(mesh).type == "meta"):
+        raise ValueError(_LAUNCH.format(n=mesh.size))
+
+
+def _local_device(dm) -> torch.device:
+    """This process's device of the ``DeviceMesh`` ``dm``."""
+    if dm.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(dm.device_type)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def place(tree, mesh: Mesh, shardings=None):
+    """``tree``'s tensors on ``mesh`` by ``shardings`` (a tree of specs of
+    ``tree``'s structure; ``params_shardings(tree, mesh)`` by default):
+    each leaf a DTensor with its spec's placements where the mesh carries
+    a process group's ``DeviceMesh`` (at any size; every process passes
+    the same values, and each keeps its shards), the one device's plain
+    tensors on a mesh of one device without one. ``ValueError`` for meta
+    devices or a mesh of several devices without a process group."""
+    _check_placeable(mesh)
+    dm = mesh.device_mesh
+    if dm is None:
+        dev = _mesh_device(mesh)
+        return map_with_path(lambda _, t: t.to(dev), tree)
+    if shardings is None:
+        shardings = params_shardings(tree, mesh)
+    local = _local_device(dm)
+
+    def put(path, t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        return distribute_tensor(t.detach().to(local), dm, spec_placements(
+            _at(shardings, path), mesh))
+    return map_with_path(put, tree)
+
+
+def gathered(tree):
+    """``tree`` with each DTensor leaf replicated on every mesh axis (an
+    all-gather of its shards; its gradient goes back to the shards as a
+    reduce-scatter); plain leaves as they are."""
+    return map_with_path(lambda _, t: t.redistribute(
+        t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+        if isinstance(t, DTensor) else t, tree)
+
+
+def full_tensors(tree):
+    """``tree`` with each DTensor leaf whole on every process (a
+    collective: every process of the mesh calls it); plain leaves as they
+    are."""
+    return map_with_path(lambda _, t: t.full_tensor()
+                         if isinstance(t, DTensor) else t, tree)
+
+
+def _has_dtensor(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return isinstance(tree, DTensor)
+
+
+def spmd_region(tree):
+    """Where ``tree`` holds a DTensor, a context in which a plain tensor
+    that meets a DTensor in an op is taken as replicated on its mesh (the
+    model's positions, masks and constants, which every process builds
+    alike); else no context. Regions nest: ``implicit_replication`` turns
+    the switch off when it exits, so only the outermost region enters it
+    (a checkpointed layer's recompute in the backward pass runs after the
+    forward's region has closed, inside the train step's)."""
+    if not _has_dtensor(tree) or DTensor._op_dispatcher \
+            ._allow_implicit_replication:
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
+# ---------------------------------------------------------------------------
+# activation sharding constraints (set by launchers, identity in plain
+# tests)
+# ---------------------------------------------------------------------------
+_ACT_POLICY: Optional[dict] = None
+
+
+def set_activation_policy(mesh: Optional[Mesh], *,
+                          batch_axes: Optional[Tuple[str, ...]] = None,
+                          model_axis: Optional[str] = "model",
+                          seq_axis: Optional[str] = None) -> None:
+    """Install the activation-sharding policy used by ``shard_activation``.
+
+    ``batch_axes`` default to the mesh's (pod, data) group. ``seq_axis``
+    shards the sequence dimension instead (long-context batch=1 cells).
+    Pass ``mesh=None`` to clear.
+    """
+    global _ACT_POLICY
+    if mesh is None:
+        _ACT_POLICY = None
+        return
+    _ACT_POLICY = {
+        "mesh": mesh,
+        "batch": batch_axes if batch_axes is not None else data_axes(mesh),
+        "model": model_axis if model_axis in mesh.axis_names else None,
+        "seq": seq_axis,
+    }
+
+
+def data_group_size() -> int:
+    """Number of shards in the (pod, data) group under the active policy."""
+    if _ACT_POLICY is None:
+        return 1
+    mesh = _ACT_POLICY["mesh"]
+    g = 1
+    for a in _ACT_POLICY["batch"] or ():
+        g *= dict(mesh.shape).get(a, 1)
+    return g
+
+
+def redistribute_to(x, spec: Spec):
+    """A DTensor ``x`` redistributed to ``spec`` fitted to its shape on the
+    policy's mesh; the identity on a plain tensor or without a policy."""
+    if _ACT_POLICY is None or not isinstance(x, DTensor):
+        return x
+    mesh = _ACT_POLICY["mesh"]
+    fitted = _fit_spec(_spec(*spec), tuple(x.shape), mesh)
+    return x.redistribute(x.device_mesh, spec_placements(fitted, mesh))
+
+
+def shard_activation(x, kind: str = "btd"):
+    """Constraint hook called from model code. kinds:
+    ``btd`` (batch, seq, d_model) — batch over (pod,data);
+    ``logits`` — batch over (pod,data), vocab over model."""
+    if _ACT_POLICY is None or not isinstance(x, DTensor):
+        return x
+    pol = _ACT_POLICY
+    nd = x.ndim
+    if pol["seq"] and nd >= 2:
+        spec = (None, pol["batch"], *([None] * (nd - 2)))
+    elif kind == "logits":
+        spec = (pol["batch"], *([None] * (nd - 2)), pol["model"])
+    else:
+        spec = (pol["batch"], *([None] * (nd - 1)))
+    return redistribute_to(x, spec)

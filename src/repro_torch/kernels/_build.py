@@ -146,9 +146,13 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def call(name: str, *args) -> None:
-    """Launch one kernel entry on the current CUDA stream; raise on error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch one kernel entry on ``device`` (its operands' CUDA device),
+    on that device's current stream, whichever device is current in the
+    calling thread; raise on error. The entry launches on the thread's
+    current device, so it is made ``device`` for the launch."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")

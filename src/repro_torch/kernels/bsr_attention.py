@@ -137,9 +137,9 @@ def bsr_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         way = route(bq, bkv, d)
         entry = "sam_bsr_attention_" + ("tc_" if way == "tensor_cores"
                                         else "")
-        _build.call(entry + _DTYPES[q.dtype], idx.data_ptr(), q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s_q,
-                    k.shape[1], d, n_qblk, max_kv, bq, bkv,
+        _build.call(entry + _DTYPES[q.dtype], q.device, idx.data_ptr(),
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    bh, s_q, k.shape[1], d, n_qblk, max_kv, bq, bkv,
                     _scale(scale, d), int(causal))
         bsr_flash_attention.launches += 1
         bsr_flash_attention.route_launches[way] += 1

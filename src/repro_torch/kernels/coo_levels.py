@@ -150,9 +150,9 @@ def coo_to_levels(keys: torch.Tensor, valid: torch.Tensor,
     out = torch.empty(out_words, dtype=torch.int32, device=keys.device)
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8,
                           device=keys.device)
-    _build.call("sam_coo_levels", keys.data_ptr(), valid.data_ptr(), n,
-                len(crd_pieces), _TILE, plan, out.data_ptr(),
-                scratch.data_ptr())
+    _build.call("sam_coo_levels", keys.device, keys.data_ptr(),
+                valid.data_ptr(), n, len(crd_pieces), _TILE, plan,
+                out.data_ptr(), scratch.data_ptr())
     coo_to_levels.launches += 1
     pieces = out.split(sizes)
     return ([pieces[i] for i in seg_pieces], [pieces[i] for i in crd_pieces],

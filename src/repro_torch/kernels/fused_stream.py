@@ -80,7 +80,7 @@ def fused_imr_workspace(a_key, a_vals, out_key, b_key, b_vals, *,
     if na and nb:
         name = ("sam_fused_imr_f64" if acc == torch.float64
                 else "sam_fused_imr_f32")
-        _build.call(name, a_key.data_ptr(), a_vals.data_ptr(),
+        _build.call(name, a_key.device, a_key.data_ptr(), a_vals.data_ptr(),
                     out_key.data_ptr(), b_key.data_ptr(), b_vals.data_ptr(),
                     out.data_ptr(), na, nb)
         fused_imr_workspace.launches += 1

@@ -81,8 +81,8 @@ def scatter_workspace(ids: torch.Tensor, cols: torch.Tensor, *,
     if n:
         name = ("sam_scatter_workspace_f64" if acc == torch.float64
                 else "sam_scatter_workspace_f32")
-        _build.call(name, ids.data_ptr(), cols.data_ptr(), out.data_ptr(),
-                    n, c, num_slots, int(mul_pair))
+        _build.call(name, cols.device, ids.data_ptr(), cols.data_ptr(),
+                    out.data_ptr(), n, c, num_slots, int(mul_pair))
         scatter_workspace.launches += 1
     return out
 

@@ -84,9 +84,9 @@ def sddmm_bsr(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
     if nnzb:
         way = route(bs, a.shape[1], a.dtype)
         entry = "sam_sddmm_bsr_" + ("tc_" if way == "tensor_cores" else "")
-        _build.call(entry + _DTYPES[a.dtype], r.data_ptr(), c.data_ptr(),
-                    a.data_ptr(), b.data_ptr(), out.data_ptr(), nnzb, bs,
-                    a.shape[1], a.shape[0], b.shape[0])
+        _build.call(entry + _DTYPES[a.dtype], a.device, r.data_ptr(),
+                    c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    nnzb, bs, a.shape[1], a.shape[0], b.shape[0])
         sddmm_bsr.launches += 1
         sddmm_bsr.route_launches[way] += 1
     return out

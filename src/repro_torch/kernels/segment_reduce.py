@@ -97,8 +97,8 @@ def segment_reduce(vals: torch.Tensor, seg_ids: torch.Tensor, *,
     if n and d:
         name = ("sam_segment_reduce_f64" if acc == torch.float64
                 else "sam_segment_reduce_f32")
-        _build.call(name, ids.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    n, d, num_segments)
+        _build.call(name, v.device, ids.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), n, d, num_segments)
         segment_reduce.launches += 1
     return out.to(vals.dtype)
 
@@ -134,7 +134,7 @@ def segment_reduce_mul(keys: torch.Tensor, a: torch.Tensor,
     if n:
         name = ("sam_segment_reduce_mul_f64" if acc == torch.float64
                 else "sam_segment_reduce_mul_f32")
-        _build.call(name, keys.data_ptr(), a.data_ptr(),
+        _build.call(name, a.device, keys.data_ptr(), a.data_ptr(),
                     None if b is None else b.data_ptr(), valid.data_ptr(),
                     out.data_ptr(), n, num_segments)
         segment_reduce.launches += 1

@@ -120,9 +120,10 @@ def spmm_bsr(blk_map: torch.Tensor, col_idx: torch.Tensor,
     if out.numel():
         way = route(bs, n, c.dtype)
         entry = "sam_spmm_bsr_" + ("tc_" if way == "tensor_cores" else "")
-        _build.call(entry + _DTYPES[c.dtype], bm.data_ptr(), ci.data_ptr(),
-                    blocks.data_ptr(), c.data_ptr(), out.data_ptr(), n_brow,
-                    max_nnz, blocks.shape[0] - 1, bs, k_dim, n)
+        _build.call(entry + _DTYPES[c.dtype], c.device, bm.data_ptr(),
+                    ci.data_ptr(), blocks.data_ptr(), c.data_ptr(),
+                    out.data_ptr(), n_brow, max_nnz, blocks.shape[0] - 1, bs,
+                    k_dim, n)
         spmm_bsr.launches += 1
         spmm_bsr.route_launches[way] += 1
     return out

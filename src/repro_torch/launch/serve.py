@@ -27,14 +27,24 @@ card by default.
         --sam-formats B=cc,C=dd --sam-dims i=512,j=512,k=512 \
         --mem-budget 24MB --workers 2 --batch 2 --reps 2
 
+    # the lanes of a split spread over a lane mesh of 4 devices (4 GPUs,
+    # or with --device cpu the CPU repeated 4 times)
+    python -m repro_torch.launch.serve \
+        --sam "X(i,j) = B(i,k) * C(k,j)" --sam-order ikj \
+        --sam-formats B=cc,C=cc --sam-dims i=256,j=256,k=256 \
+        --split i=4 --devices 4 --batch 4 --reps 2
+
 Run from the repository root with ``PYTHONPATH=src``. ``--device cpu``
 runs on the CPU (the plain PyTorch versions of the kernels); without it
-and without a GPU every mode raises. ``--devices`` (lanes over several
-GPUs) is refused by ``compile_expr`` (ROADMAP.md, still to port #5).
+and without a GPU every mode raises. ``--devices N`` shards the lanes
+over N devices or fails: on the card it needs N GPUs; with ``--device
+cpu``, ``main`` sets ``$SAM_LANE_DEVICES`` to N, a lane mesh of the CPU
+repeated N times (the reference forces N host devices the same way).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -45,7 +55,9 @@ from ..core import coord_ops as co
 from ..core.einsum import parse
 from ..core.program import parse_program
 from ..core.schedule import Format, Schedule
-from ..core.torch_backend import compile_expr, compile_program
+from ..core.torch_backend import (LANE_DEVICES_ENV, compile_expr,
+                                  compile_program, lane_device_count,
+                                  lane_mesh_size)
 from ..models.model import init_caches, init_params
 from ..train.train_step import make_prefill_step, make_serve_step
 
@@ -154,6 +166,12 @@ def serve_sam(expr: str, order: str, formats, dims, *, batch: int = 8,
     """
     from ..core import tiling
 
+    device = co.resolve_device(device)
+    if devices and lane_device_count(device) < devices:
+        raise SystemExit(
+            f"--devices {devices} requested but only "
+            f"{lane_device_count(device)} device(s) present; on the CPU set "
+            f"{LANE_DEVICES_ENV}={devices} (done by main for --device cpu)")
     split = dict(split or {})
     if autotune and split:
         raise SystemExit("--autotune searches the schedule (including "
@@ -195,9 +213,17 @@ def serve_sam(expr: str, order: str, formats, dims, *, batch: int = 8,
             "--devices shards parallel lanes; "
             + ("--autotune picked an unsplit schedule for this shape"
                if autotune else "give --split too (e.g. --split k=4)"))
-    # an explicit --devices must shard or fail loudly: compile_expr's
-    # lane-placement check raises (no mesh fits, or lanes over GPUs are
-    # not ported yet)
+    par_n = max(sch.parallelize.values(), default=1)
+    if devices and lane_mesh_size(par_n, devices, device) < 2:
+        # an explicit --devices must shard or fail loudly (auto-detection
+        # would run the lanes in series)
+        raise SystemExit(
+            f"--devices {devices}: no >1-device mesh fits {par_n} lane(s) "
+            f"on {lane_device_count(device)} present device(s); "
+            + ("--autotune picked a schedule without matching parallel "
+               "lanes for this shape; drop --devices"
+               if autotune else
+               "pick a split factor a device subset divides"))
     eng = compile_expr(expr, fmt, sch, dims,
                        shard_lanes=devices if devices else None,
                        sparsity=density, mem_budget=mem_budget,
@@ -224,9 +250,14 @@ def serve_sam(expr: str, order: str, formats, dims, *, batch: int = 8,
             log(f"[serve-sam] --workers {workers}: request fits in-core "
                 f"(untiled), nothing to distribute; serving single-device")
     if split:
+        inner = getattr(eng, "engine", eng)     # a tiled engine's tile engine
+        mesh = ", ".join(str(d) for d in inner._lane_devices)
         log(f"[serve-sam] split={split} parallelize={sch.parallelize}: "
-            f"{eng.par_n}-lane {eng.low.merge_kind}-merge, lanes run one "
-            f"after another inside the batched dispatch")
+            f"{eng.par_n}-lane {eng.low.merge_kind}-merge, "
+            + (f"each request's lanes over a lane mesh of "
+               f"{inner._lane_mesh} devices ({mesh})"
+               if inner._shard_lanes else
+               "lanes run one after another inside the batched dispatch"))
     assign = parse(expr)
     rng = np.random.default_rng(seed)
 
@@ -366,8 +397,9 @@ def main(argv=None):
                     help="§4.4 iteration splitting + N parallel lanes, "
                          "e.g. k=4 (implies parallelize)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard parallel lanes over this many GPUs (not "
-                         "ported: refused, ROADMAP.md still to port #5)")
+                    help="shard parallel lanes over a lane mesh of this "
+                         "many devices (GPUs; with --device cpu the CPU "
+                         "repeated), or fail")
     ap.add_argument("--workers", type=int, default=0,
                     help="distribute out-of-core tile grids over this "
                          "many workers with fault-tolerant retry "
@@ -387,6 +419,12 @@ def main(argv=None):
                     help="where the model or the engines run: cuda (the "
                          "default) or cpu (the plain PyTorch versions)")
     args = ap.parse_args(argv)
+    if (args.devices > 1 and args.device is not None
+            and torch.device(args.device).type == "cpu"
+            and lane_device_count("cpu") < args.devices):
+        # the CPU lane mesh of --devices (the reference forces as many
+        # host devices before JAX starts)
+        os.environ[LANE_DEVICES_ENV] = str(args.devices)
 
     if not args.sam:
         return serve_lm(args.arch, reduced=args.reduced, batch=args.batch,

@@ -120,17 +120,41 @@ def init_embedding(gen: Optional[torch.Generator], vocab: int, d_model: int,
     return (normal(gen, (vocab, d_model)) * 0.02).to(dtype)
 
 
+def _whole_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``x`` with its last dim whole on every shard (the label
+    pick's gather has no rule over a sharded vocabulary); a plain tensor
+    as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in (-1, last) else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``x`` whole on every process; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in float32; with ``mask``, the mean over
     the masked tokens (``sum(mask)`` at least 1)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
+    ll = torch.gather(_whole_last_dim(logits), -1,
+                      labels.long()[..., None])[..., 0]
+    # placed, the token losses are summed whole on every process, in one
+    # device's order, so a loss does not depend on the mesh
+    nll = _replicated(logz - ll)
     if mask is None:
         return torch.mean(nll)
-    mask = mask.float()
+    mask = _replicated(mask.float())
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 

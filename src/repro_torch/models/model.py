@@ -29,11 +29,17 @@ never when caches are passed) with
 layer (``nothing_saveable``), ``"dots"`` saves the outputs of the
 projections (``aten.mm``/``aten.addmm``, the products without batch
 dims: ``dots_with_no_batch_dims_saveable``) and recomputes everything
-else. Activation sharding (the reference's ``shard_activation``) and
-the expert-parallel policy come with lanes over several devices
-(ROADMAP.md, still to port #5); on one device they change nothing. Token
-ids outside the vocabulary raise ``ValueError`` where the reference's
-gather would clamp them.
+else. Activation sharding is the reference's: ``shard_activation`` on
+the embeddings, on each layer's output and on the logits
+(``distributed.sharding``), which redistributes DTensor activations of
+parameters placed over a process group's mesh and changes nothing
+without a policy or on plain tensors. Placed parameters are gathered
+where they are used (each stack a layer at a time, inside the layer's
+checkpoint under remat), so activations are sharded over the batch
+only; ``forward``
+runs inside ``spmd_region``, so the plain tensors it builds meet
+DTensors as replicated ones. Token ids outside the vocabulary raise ``ValueError``
+where the reference's gather would clamp them.
 """
 from __future__ import annotations
 
@@ -41,10 +47,13 @@ import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core import coord_ops as co
+from ..distributed.sharding import gathered, shard_activation, spmd_region
 from .attention import attention, init_attention, init_kv_cache
 from .common import (apply_mlp, cross_entropy, dense_init, device_of,
                      init_embedding, init_mlp, init_rms, rms_norm)
@@ -310,7 +319,7 @@ def _scan_stack(stack, x, layer_fn, caches=None, remat=None):
     layers = _unstack(stack, n)
     if caches is None:
         def body(lp, h):
-            return layer_fn(lp, h, None)[0]
+            return shard_activation(layer_fn(gathered(lp), h, None)[0])
         if remat is not None:
             body = remat(body)
         for lp in layers:
@@ -318,7 +327,8 @@ def _scan_stack(stack, x, layer_fn, caches=None, remat=None):
         return x, None
     new_caches = []
     for lp, c in zip(layers, _unstack(caches, n)):
-        x, c2 = layer_fn(lp, x, c)
+        x, c2 = layer_fn(gathered(lp), x, c)
+        x = shard_activation(x)
         new_caches.append(c2)
     return x, (tree_stack(new_caches) if n else caches)
 
@@ -326,6 +336,8 @@ def _scan_stack(stack, x, layer_fn, caches=None, remat=None):
 def _check_tokens(cfg: ModelConfig, tokens: torch.Tensor) -> None:
     if tokens.device.type == "meta":     # no ids to read (the dry-run)
         return
+    if isinstance(tokens, DTensor):      # every process checks them all
+        tokens = tokens.full_tensor()
     lo, hi = (int(v) for v in torch.aminmax(tokens))
     if lo < 0 or hi >= cfg.vocab:
         raise ValueError(f"token ids must lie in [0, {cfg.vocab}); got "
@@ -341,7 +353,12 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     else:
         tokens = batch["tokens"]
         _check_tokens(cfg, tokens)
-        x = params["embed"][tokens.long()].to(cd)
+        ids, emb = tokens.long(), params["embed"]
+        # a placed table is looked up by torch's embedding op, whose
+        # backward DTensor carries (the index form's, ``index_put``, fails
+        # on torch 2.11 with the ids sharded over the batch)
+        x = (F.embedding(ids, emb) if isinstance(emb, DTensor)
+             else emb[ids]).to(cd)
         prefix_len = None
         if cfg.frontend == "siglip_stub":
             patches = (batch["patches"].to(cd)
@@ -354,12 +371,25 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     return x, prefix_len
 
 
+# the stacks that ``_scan_stack`` runs, whose layers it gathers one by one
+_GATHERED_BY_LAYER = ("layers", "dense_layers", "mamba_layers")
+
+
 def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
             ) -> Tuple[torch.Tensor, Any]:
     """Returns (logits (B, S, V), new caches or None). ``remat``: None or
     ``"none"``, ``"dots"`` or ``"full"`` (see the module's docstring)."""
-    remat = _remat(remat)
+    with spmd_region(params):
+        return _forward(cfg, params, batch, caches, _remat(remat))
+
+
+def _forward(cfg: ModelConfig, params, batch, caches, remat):
+    # placed parameters are gathered where they are used: the stacks a
+    # layer at a time (in ``_scan_stack``), the rest here
+    params = {k: v if k in _GATHERED_BY_LAYER else gathered(v)
+              for k, v in params.items()}
     x, prefix_len = embed_inputs(cfg, params, batch)
+    x = shard_activation(x)
     new_caches: Dict[str, Any] = {}
 
     if cfg.family in ("dense", "vlm", "audio"):
@@ -391,7 +421,7 @@ def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
                  add_unit_offset=(cfg.activation == "gelu"))
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(cfg.cdtype)
-    logits = x.to(cfg.cdtype) @ head
+    logits = shard_activation(x.to(cfg.cdtype) @ head, "logits")
     if cfg.frontend == "siglip_stub":
         logits = logits[:, cfg.n_patches:]        # text positions only
     return logits, (new_caches if caches is not None else None)

@@ -8,9 +8,9 @@ A port of ``model_flops``, ``kernel_roofline`` and ``analyze_cell`` from
 TPU v5e's. ``analyze_cell`` reads what ``launch.dryrun.lower_cell``
 counted over one run of a step on meta tensors, not a compiled
 artefact; the reference's readers of the optimized HLO text
-(``collective_bytes``, ``major_bytes``) have no counterpart, and there is
-no collective term until lanes over several devices give the port
-collectives (ROADMAP.md, #5).
+(``collective_bytes``, ``major_bytes``) have no counterpart, and the
+cells are counted without a placement, so there is no collective term
+yet (ROADMAP.md, queue 1).
 Which rate a kernel's operations run at is the caller's choice:
 ``H100_BF16_FLOPS`` for bfloat16 products on the tensor cores,
 ``H100_3XTF32_FLOPS`` for float32 products as three TF32 passes (what

@@ -18,8 +18,8 @@ the full-architecture terms are extrapolated with the real layer counts:
 
 Batch-size/sequence terms are untouched (probes keep the full shape).
 The rates are the H100's (``analysis.H100_BF16_FLOPS``,
-``analysis.H100_HBM_BW``). There is no collective term until lanes over
-several devices give the port collectives (ROADMAP.md, #5):
+``analysis.H100_HBM_BW``). The cells are counted without a placement,
+so there is no collective term yet (ROADMAP.md, queue 1):
 ``t_collective`` is None and ``bottleneck`` is compute or memory.
 """
 from __future__ import annotations

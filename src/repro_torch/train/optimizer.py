@@ -51,11 +51,13 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(cfg: AdamWConfig, params) -> dict:
     """Zero moments in ``state_dtype`` beside each parameter (on its
-    device) and a step count of 0 (int32, on the first leaf's device)."""
+    device, a placed parameter's moments with its placements) and a step
+    count of 0 (int32, on the first leaf's device)."""
     dt = getattr(torch, cfg.state_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),

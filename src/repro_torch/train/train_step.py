@@ -19,6 +19,15 @@ another, the gradients accumulated in float32, then divided by
 
 Gradient compression: int8 with error feedback (``opt_state["err"]``),
 per leaf, applied to the accumulated gradient before the optimizer.
+
+Placed parameters (DTensors over a process group's mesh,
+``distributed.sharding.place``) go through the same functions: the step
+runs inside ``spmd_region``, each gradient is redistributed to its
+parameter's placements (a replicated leaf's gradient comes out
+``Partial(sum)``; the reduction happens there, so the compression's
+abs-max and rounding see reduced values), the error feedback and the
+optimizer's moments take their parameters' placements, and the metrics
+come back whole on every process.
 """
 from __future__ import annotations
 
@@ -26,7 +35,10 @@ from typing import Callable, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from ..configs.base import ModelConfig
+from ..distributed.sharding import spmd_region
 from ..models import model as M
 from .optimizer import AdamWConfig, adamw_update, global_norm
 
@@ -60,17 +72,30 @@ def value_and_grad(loss_fn, params, batch):
     zeros."""
     leaves = [t.detach().requires_grad_(True)
               for t in M.tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), spmd_region(params):
         loss = loss_fn(M.tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g
+    grads = [torch.zeros_like(t) if g is None else _like(g, t)
              for t, g in zip(leaves, grads)]
     return loss.detach(), M.tree_unflatten(params, grads)
 
 
+def _like(g, p):
+    """A DTensor gradient redistributed to its parameter's placements
+    (this reduces a ``Partial`` one); a plain one as it is."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _zeros32(params):
-    return M.tree_map(lambda p: torch.zeros(
-        p.shape, dtype=torch.float32, device=p.device), params)
+    return M.tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
@@ -84,6 +109,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
     loss_fn = remat_loss_fn(cfg, remat)
 
     def train_step(params, opt_state, batch):
+        with spmd_region(params):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if n_micro == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -110,9 +139,9 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
         new_state = dict(new_core)
         if compress_grads:
             new_state["err"] = new_err
-        metrics = {"loss": loss.float(),
-                   "grad_norm": global_norm(grads),
-                   "step": new_core["step"]}
+        metrics = {"loss": _whole(loss.float()),
+                   "grad_norm": _whole(global_norm(grads)),
+                   "step": _whole(new_core["step"])}
         return new_params, new_state, metrics
 
     return train_step

@@ -388,23 +388,23 @@ def test_bitvector_storage_is_refused():
         eng(arrays)
 
 
-# -- lanes over GPUs refuse loudly; tiles and "auto" run ---------------------
+# -- paths once refused here now run: lanes over a lane mesh, tiles, "auto" -
 
 @pytest.mark.parametrize("what", ["split", "parallelize", "tile", "auto",
                                   "mem_budget", "lower_auto",
                                   "lower_program"])
 def test_unported_paths_raise_not_implemented(what, monkeypatch, tmp_path):
-    # split and parallelize lanes are ported; spreading the lanes over
-    # GPUs is not, so with four GPUs a required lane mesh refuses. Tiles,
-    # budgets and "auto" schedules (once refused here too) now run: each
-    # of those cases holds its path against numpy
+    # every path this test once saw refused now runs, and each case holds
+    # its path against numpy: split and parallelize lanes spread over a
+    # lane mesh (a CPU one of two here; shard_lanes True and 2 require
+    # one), tiles, budgets and "auto" schedules
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setenv("SAM_SCHEDULE_CACHE", str(tmp_path / "s.json"))
     expr = "x(i) = B(i,j) * c(j)"
     fmt = Format({"B": "cc", "c": "c"})
     dims = {"i": 4, "j": 6}
     base = dict(loop_order=("i", "j"))
-    refusals = {
+    meshes = {
         "split": lambda: compile_expr(expr, fmt, Schedule(
             **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU,
             shard_lanes=True),
@@ -412,10 +412,11 @@ def test_unported_paths_raise_not_implemented(what, monkeypatch, tmp_path):
             **base, split={"i": 2}, parallelize={"i": 2}), dims, device=CPU,
             shard_lanes=2),
     }
-    if what in refusals:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            refusals[what]()
-        return
+    if what in meshes:
+        monkeypatch.setenv("SAM_LANE_DEVICES", "1")
+        with pytest.raises(ValueError, match="cannot shard 2 lane"):
+            meshes[what]()
+        monkeypatch.setenv("SAM_LANE_DEVICES", "2")
     rng = np.random.default_rng(len(what))
     arrays = {"B": sparse(rng, (4, 6)), "c": sparse(rng, 6, 0.8)}
     want = arrays["B"] @ arrays["c"]
@@ -440,6 +441,11 @@ def test_unported_paths_raise_not_implemented(what, monkeypatch, tmp_path):
                 text, Format(default="c"), "auto", pdims,
                 device=CPU).lp.stages]
         got, want = out["A"].to_dense(), numpy_reference(text, parrays)["A"]
+    elif what in meshes:
+        eng = meshes[what]()
+        got = eng(arrays).to_dense()
+        assert eng._lane_mesh == 2
+        assert eng.stats["sharded_dispatches"] == 1
     else:
         eng = {"tile": lambda: compile_expr(
                    expr, fmt, Schedule(**base, tile={"j": 2}), dims,

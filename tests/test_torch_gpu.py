@@ -1277,3 +1277,92 @@ def test_train_main_runs_on_the_card_by_default(cuda, tmp_path, capsys):
                    str(tmp_path), "--ckpt-every", "2"])
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert "[train] qwen3-0.6b steps=3" in capsys.readouterr().out
+
+
+# -- lanes over a lane mesh ---------------------------------------------------
+
+def _two_gpus():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (a lane mesh over distinct cards)")
+
+
+def _lane_case(rng):
+    expr, dims = "X(i,j) = B(i,k) * C(k,j)", {"i": 64, "j": 48, "k": 40}
+    arrays = {"B": ((rng.random((64, 40)) < 0.2)
+                    * rng.integers(1, 9, (64, 40))).astype(float),
+              "C": ((rng.random((40, 48)) < 0.2)
+                    * rng.integers(1, 9, (40, 48))).astype(float)}
+    sch = Schedule(loop_order=("i", "k", "j"), split={"i": 4},
+                   parallelize={"i": 4})
+    return expr, Format({"B": "cc", "C": "cc"}), sch, dims, arrays
+
+
+def _assert_same_tree(a, b):
+    assert a.format_str == b.format_str
+    for la, lb in zip(a.levels, b.levels):
+        for name in ("seg", "crd"):
+            x, y = getattr(la, name), getattr(lb, name)
+            assert (x is None) == (y is None)
+            if x is not None:
+                np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a.vals, b.vals)
+
+
+@pytest.mark.gpu
+def test_repeated_device_lane_mesh_equals_serial_lanes(cuda, monkeypatch):
+    expr, fmt, sch, dims, arrays = _lane_case(np.random.default_rng(41))
+    serial = CompiledExpr(expr, fmt, sch, dims, shard_lanes=False)
+    want = serial(arrays)
+    monkeypatch.setenv("SAM_LANE_DEVICES", str(max(
+        4, torch.cuda.device_count() + 1)))
+    before = kops.launch_counts()
+    eng = CompiledExpr(expr, fmt, sch, dims, shard_lanes=4)
+    got = eng(arrays)
+    after = kops.launch_counts()
+    _assert_same_tree(want, got)
+    np.testing.assert_array_equal(got.to_dense(),
+                                  arrays["B"] @ arrays["C"])
+    assert eng.stats["sharded_dispatches"] == 1
+    if torch.cuda.device_count() < 4:
+        assert len(set(eng._lane_devices)) == 1
+    assert after["scatter_workspace"] + after["segment_reduce"] > \
+        before["scatter_workspace"] + before["segment_reduce"]
+
+
+@pytest.mark.gpu
+def test_lanes_over_two_gpus_launch_on_the_second(cuda, monkeypatch):
+    _two_gpus()
+    expr, fmt, sch, dims, arrays = _lane_case(np.random.default_rng(42))
+    want = CompiledExpr(expr, fmt, sch, dims, shard_lanes=False)(arrays)
+    eng = CompiledExpr(expr, fmt, sch, dims, shard_lanes=2)
+    assert eng._lane_devices == [torch.device("cuda", 0),
+                                 torch.device("cuda", 1)]
+    seen = []
+    real = kops._build.call
+
+    def spy(name, device, *args):
+        seen.append(torch.device(device))
+        return real(name, device, *args)
+    monkeypatch.setattr(kops._build, "call", spy)
+    _assert_same_tree(want, eng(arrays))
+    assert torch.device("cuda", 1) in seen and torch.device("cuda", 0) in seen
+    assert eng.stats["sharded_dispatches"] == 1
+
+
+@pytest.mark.gpu
+def test_wrapper_launches_on_its_tensors_device_from_another(cuda):
+    _two_gpus()
+    rng = np.random.default_rng(43)
+    ids = torch.tensor(rng.integers(0, 50, 4096), dtype=torch.int32)
+    cols = torch.tensor(rng.integers(-4, 5, (4096, 2)), dtype=torch.float32)
+    want = scatter_workspace_plain(ids, cols, num_slots=50)
+    with torch.cuda.device(0):
+        got = scatter_workspace(ids.to("cuda:1"), cols.to("cuda:1"),
+                                num_slots=50)
+        seg = segment_reduce(cols.to("cuda:1"), ids.to("cuda:1"),
+                             num_segments=50)
+    assert got.device == torch.device("cuda", 1)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        seg.cpu(), segment_reduce_plain(cols, ids, num_segments=50),
+        rtol=0, atol=0)

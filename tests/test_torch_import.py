@@ -126,7 +126,7 @@ def _entry_calls():
     from repro_torch.core.dist_exec import dist_compile
     from repro_torch.core.serving import SamServer
     from repro_torch.kernels import ops as kops
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_local_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.configs.qwen3_0_6b import REDUCED
     from repro_torch.models.common import params_from_numpy
@@ -167,6 +167,7 @@ def _entry_calls():
             "x(i) = B(i,j) * c(j)", fmt,
             Schedule(loop_order=("i", "j"), tile={"j": 3}), dims),
         "make_host_mesh": lambda: make_host_mesh(),
+        "make_local_mesh": lambda: make_local_mesh(),
         "serve": lambda: serve_main(["--sam", "x(i) = B(i,j) * c(j)",
                                      "--sam-dims", "i=2,j=3"]),
         "compile_moe_block": lambda: compile_moe_block(2, 2, 4, 3, 3),
@@ -186,7 +187,8 @@ def _entry_calls():
                                    "execute_graph", "compile_program",
                                    "sam_primitive", "accumulate_coo",
                                    "SamServer", "dist_compile",
-                                   "make_host_mesh", "serve",
+                                   "make_host_mesh", "make_local_mesh",
+                                   "serve",
                                    "compile_moe_block", "MoEBlock",
                                    "PrunedTransformer", "params_from_numpy",
                                    "batch_for_step", "train"])

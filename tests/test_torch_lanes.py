@@ -13,7 +13,8 @@
   ``execute_batch``; ``execute_many`` equals singles; an overflow retry
   of a freshly recorded plan brings back only the needed sizes.
 * ``execute_coo`` under split returns original-space coordinates.
-* The ``shard_lanes`` resolver raises as specified.
+* The ``shard_lanes`` resolver: serial lanes without a mesh, a required
+  mesh refused where none fits, and a CPU lane mesh where one does.
 
 Integer-valued data, so every comparison is exact.
 """
@@ -278,24 +279,34 @@ def test_execute_coo_returns_original_coordinates(split):
 def test_shard_lanes_resolver(monkeypatch):
     sch = Schedule(**lanes("ikj", 4))
     fmt = Format(SPMSPM_FMT)
+    arrays = spmspm_set(np.random.default_rng(1))
+    want = arrays["B"] @ arrays["C"]
+    monkeypatch.setenv(tb.LANE_DEVICES_ENV, "1")
+    monkeypatch.delenv(tb.LANE_DEVICES_ENV)
+    # one CPU: no mesh fits, so None and False run the lanes in series
     for shard in (None, False):
         eng = compile_expr(SPMSPM, fmt, sch, BDIMS, device=CPU,
                            shard_lanes=shard)
-        eng(spmspm_set(np.random.default_rng(1)))
-        assert eng.stats["sharded_dispatches"] == 0
-    # no GPU, or too few: a required mesh cannot fit
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        np.testing.assert_array_equal(eng(arrays).to_dense(), want)
+        assert eng.stats["sharded_dispatches"] == 0 and eng._lane_mesh == 1
+    # and a required mesh cannot fit
     for shard in (True, 2):
         with pytest.raises(ValueError, match="cannot shard 4 lane"):
             compile_expr(SPMSPM, fmt, sch, BDIMS, device=CPU,
                          shard_lanes=shard)
-    # a mesh would fit: lanes over GPUs belong to the distributed slice
+    # a CUDA engine's mesh counts the CUDA devices
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert tb.lane_mesh_size(4) == 4 and tb.lane_mesh_size(4, 2) == 2
     assert tb.lane_mesh_size(3) == 3 and tb.lane_mesh_size(3, 2) == 1
-    for shard in (True, 2):
-        with pytest.raises(NotImplementedError, match="still to port #5"):
-            CompiledExpr(SPMSPM, fmt, sch, BDIMS, device=CPU,
-                         shard_lanes=shard)
+    assert tb.lane_mesh_size(4, device=CPU) == 1
+    # a CPU lane mesh of four: True and None take all four, 2 bounds it
+    monkeypatch.setenv(tb.LANE_DEVICES_ENV, "4")
+    for shard, m in ((True, 4), (2, 2), (None, 4)):
+        eng = CompiledExpr(SPMSPM, fmt, sch, BDIMS, device=CPU,
+                           shard_lanes=shard)
+        assert eng._lane_mesh == m and eng._lane_devices == [
+            torch.device(CPU)] * m
+        np.testing.assert_array_equal(eng(arrays).to_dense(), want)
+        assert eng.stats["sharded_dispatches"] == 1
     with pytest.raises(ValueError, match="with --devices 1"):
         CompiledExpr(SPMSPM, fmt, sch, BDIMS, device=CPU, shard_lanes=1)

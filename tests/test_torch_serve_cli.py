@@ -5,8 +5,9 @@
 distributed); the served results of the last dispatch equal numpy on the
 operand sets ``serve_sam`` draws from its seed. The language-model mode
 (no ``--sam``) serves on ``--device cpu`` and, with no GPU, refuses to
-run without it; ``--devices`` (lanes over several GPUs) is refused by the
-engine's lane placement, naming still to port #5.
+run without it; ``--devices 2 --device cpu`` serves on a CPU lane mesh
+of two, ``--devices`` without a GPU raises, and a lane count that no
+device subset divides is refused.
 """
 import numpy as np
 import pytest
@@ -82,7 +83,18 @@ def test_lm_mode_and_lanes_over_gpus_are_refused(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--arch", "qwen3-0.6b", "--reduced"])
-    with pytest.raises((ValueError, NotImplementedError),
-                       match="still to port #5"):
-        main(["--sam", MM, "--split", "k=4", "--devices", "2",
+    # lanes over several devices: without a GPU and without --device cpu
+    # the card's lane mesh raises; with --device cpu, --devices 2 is a CPU
+    # lane mesh of two (test_torch_lanes_mesh.py holds its results), and a
+    # mesh that no device subset divides is refused
+    monkeypatch.setenv("SAM_LANE_DEVICES", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--sam", MM, "--split", "k=4", "--devices", "2"])
+    res = main(["--sam", MM, "--split", "k=4", "--devices", "2",
+                "--sam-dims", "i=16,j=16,k=16", "--batch", "2", "--reps",
+                "1", "--device", "cpu"])
+    assert "each request's lanes over a lane mesh of 2 devices (cpu, cpu)" \
+        in capsys.readouterr().out and len(res) == 2
+    with pytest.raises(SystemExit, match="no >1-device mesh fits 3"):
+        main(["--sam", MM, "--split", "k=3", "--devices", "2",
               "--device", "cpu"])

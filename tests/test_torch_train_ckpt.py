@@ -17,8 +17,8 @@ the CPU, mirroring ``tests/test_distributed.py`` and
 * ``launch.train``: ``build`` + the runner with a crash at step 4 and a
   resume run exactly the missing steps with the uninterrupted run's
   losses bit for bit; ``main(... --device cpu)`` prints the reference's
-  ``[train]`` line and returns the losses; ``--model-parallel 2`` is
-  refused (still to port); then the crash-resume-serve path of
+  ``[train]`` line and returns the losses; ``--model-parallel 2`` in one
+  process is refused (it must divide the process count); then the crash-resume-serve path of
   ``tests/test_system.py`` through the port (smaller), and the training
   example for 3 steps.
 """
@@ -255,7 +255,7 @@ def test_train_main_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert f"[train] qwen3-0.6b steps=3 loss {losses[0]:.3f} -> " in out
     assert Checkpointer(str(tmp_path)).latest_step() == 2
-    with pytest.raises(NotImplementedError, match="#5"):
+    with pytest.raises(ValueError, match="must divide the 1 process"):
         train.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                     "--model-parallel", "2", "--ckpt-dir", str(tmp_path)])
 

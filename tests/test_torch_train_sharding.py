@@ -14,8 +14,10 @@ the production meshes (16, 16) and (2, 16, 16) and a host-sized (4, 2):
 * ``validate_mesh_for`` gives the reference's problem lists (the
   reference's on an ``AbstractMesh`` of the same shape).
 
-Placement (``place``, ``elastic.reshard``) works on a mesh of one device
-and refuses a mesh of more (still to port, ROADMAP #5).
+Placement (``place``, ``elastic.reshard``) moves plain tensors on a mesh
+of one device without a process group and refuses a mesh of more
+without one, saying how to launch (``tests/test_torch_placement.py``
+places over a process group).
 """
 import functools
 import types
@@ -151,5 +153,5 @@ def test_place_and_reshard_on_one_device_only():
     devs = np.empty(2, dtype=object)
     devs[:] = [torch.device("cpu")] * 2
     two = Mesh(devs.reshape(2, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="#5"):
+    with pytest.raises(ValueError, match="--nproc-per-node 2"):
         elastic.reshard(state, two)
