@@ -214,7 +214,10 @@ Phases:
       dry-run on meta tensors (no device) for qwen3-0.6b's four shapes and
       deepseek-v3-671b x train_4k on both production meshes: FLOPs, the
       useful ratio model_flops / flops, per-device argument bytes against
-      80 GB and the compute and memory terms at the H100's rates; (3)
+      80 GB, the compute and memory terms at the H100's rates and the
+      collective term (the step placed on the mesh's shape over a fake
+      process group: t_collective and the wire bytes a device, or the op
+      that refused placement); (3)
       ``roofline_sweep --arch qwen3-0.6b --shape train_4k``, whose probe
       extrapolation must equal (2)'s direct count; (4) the four
       ``examples/torch_*.py`` as subprocesses on the card, each exiting 0
@@ -234,8 +237,15 @@ Phases:
       over NCCL, its losses within 1e-5 (relative) of a plain one-process
       run of the same steps (run beside it; with a data axis over 1 card,
       the second and third within 1e-4: each shard's bfloat16 gradients
-      round before their sum), and this script with ``--x2-moonshot``
-      under the same launch: one float32 step of moonshot-v1-16b-a3b at 2
+      round before their sum), and this script with ``--x2-ranks``
+      under the same launch (beside them on four cards, after them on
+      fewer): one train step of qwen3-0.6b whole (8 x 256,
+      bfloat16 compute, remat "dots", AdamW) on its placed parameters
+      under ``launch.dryrun.CollectiveCounter``, whose collective bytes by
+      op and mesh axis must equal ``launch.dryrun.count_collectives`` of
+      the same step on the same mesh (its projections split over the
+      model axis on four cards), each card's peak allocated bytes
+      printed; then one float32 step of moonshot-v1-16b-a3b at 2
       of 48 layers at full width (one dense layer, one MoE layer of 64
       experts, top-6) on (4, 32), the loss within 1e-5 and every gradient
       leaf within 1e-4 of its largest magnitude against the plain step;
@@ -377,6 +387,8 @@ GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 # (w): the dry-run's SAM cells (16 level-format cells at 48^3 take about
 # 20 s of simulator cycles on the host) and the examples
 X_BATCH, X_SEQ, X_STEPS = 8, 256, 3    # (x)(2)'s qwen3-0.6b run
+W_LM_JSON = ROOT / "chiprun_out" / "w_lm.json"   # (w)(2) and (3)'s records
+W_LM_PROC = []              # (w)(2) and (3)'s process, while it runs
 W_SAM = "X(i,j) = B(i,k) * C(k,j)"
 W_SAM_N = 48
 W_SAM_DENSITY = 0.1
@@ -641,6 +653,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[a] {src}: {line.strip()}")
     log(f"[a] {smi}")
+    # (w)(2) and (3) count on meta tensors on the host, with no device:
+    # they run in a process of their own beside (b)-(v)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    W_LM_PROC.append(subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--w-lm",
+         str(W_LM_JSON)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
 
     from repro_torch.kernels.scatter_workspace import scatter_workspace
     from repro_torch.kernels.segment_reduce import segment_reduce
@@ -3236,15 +3255,13 @@ def main() -> int:
     del o_arrays, want_o, teng, spmspm_d, want_d
 
     # -- (w) the launch tools and the examples -------------------------------
-    # (1) and the four examples run as subprocesses on the card, started
-    # first so that they overlap (2) and (3), which count on meta tensors
-    # in this process; each subprocess prints its kernel launches, which
-    # make the phase's
-    from repro_torch.configs import SHAPES as LM_SHAPES
+    # (1) and the four examples run as subprocesses on the card; (2) and
+    # (3) count on meta tensors in a host process started after (a); each
+    # subprocess on the card prints its kernel launches, which make the
+    # phase's
     from repro_torch.core.autoschedule import (resolve_densities,
                                                synthetic_operands)
     from repro_torch.core.einsum import parse as w_parse
-    from repro_torch.launch import dryrun, roofline_sweep
 
     w_start = time.perf_counter()
     w_env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -3264,50 +3281,66 @@ def main() -> int:
     per_phase["w"] = {k: 0 for k in kops.launch_counts()}
     w_runs = {}
     try:
-        # (2) the LM cells on meta tensors: qwen3-0.6b's four shapes and
-        # deepseek-v3-671b x train_4k, both meshes (--all counts xlstm-125m's
-        # sLSTM scan op by op: minutes on the host)
-        t0 = time.perf_counter()
+        # (2) and (3) ran on the host beside the earlier phases
+        # (``w_lm_counts``, started after (a)); their records are read here
+        w_lm_out, w_lm_err = W_LM_PROC[0].communicate(timeout=900)
+        (ROOT / "chiprun_out" / "w_lm.log").write_text(
+            w_lm_out + "\n--- stderr\n" + w_lm_err)
+        if W_LM_PROC[0].returncode:
+            raise AssertionError(f"(w)(2) exited {W_LM_PROC[0].returncode} "
+                                 f"(its output in chiprun_out/w_lm.log): "
+                                 f"{w_lm_err[-3000:]}")
+        w_lm_rec = json.loads(W_LM_JSON.read_text())
+        w2_s, w3_s = w_lm_rec["lm_s"], w_lm_rec["probe_s"]
         w_lm = {}
-        for arch, shape in ([("qwen3-0.6b", n) for n in LM_SHAPES]
-                            + [("deepseek-v3-671b", "train_4k")]):
-            for rec in dryrun.main(["--arch", arch, "--shape", shape,
-                                    "--both-meshes"]):
-                if rec.get("skipped"):
-                    log(f"[w] (2) {arch} x {shape}: skipped (full "
-                        f"attention at 500k)")
-                    continue
-                mem, r = rec["mem_per_device"], rec["roofline"]
-                w_lm[(arch, shape, rec["n_devices"])] = rec
-                log(f"[w] (2) {arch} x {shape} on {rec['n_devices']} "
-                    f"devices: flops {rec['flops']:.6e}, useful "
-                    f"{rec['useful_flop_ratio']:.4f}, arguments "
-                    f"{mem['argument_bytes']} bytes a device "
-                    f"({mem['argument_bytes'] / mem['hbm_bytes']:.4f} of "
-                    f"80 GB), compute {r['t_compute']:.4e} s, memory "
-                    f"{r['t_memory']:.4e} s a device at the H100's rates "
-                    f"({r['bottleneck']})")
-                if not (rec["flops"] > 0 and mem["fits"]):
-                    raise AssertionError(f"(w)(2) {rec}")
-        w2_s = time.perf_counter() - t0
+        for rec in w_lm_rec["cells"]:
+            arch, shape = rec["arch"], rec["shape"]
+            if rec.get("skipped"):
+                log(f"[w] (2) {arch} x {shape}: skipped (full attention "
+                    f"at 500k)")
+                continue
+            mem, r = rec["mem_per_device"], rec["roofline"]
+            w_lm[(arch, shape, rec["n_devices"])] = rec
+            coll = (f"collective {r['t_collective']:.4e} s "
+                    f"({r['collective_bytes_per_device']:.6e} wire bytes a "
+                    f"device: "
+                    f"{json.dumps(r['collective_detail']['bytes_by_op'])})"
+                    if r["t_collective"] is not None else
+                    f"collective none (placement refused at "
+                    f"{r['collective_detail']['refused']})")
+            log(f"[w] (2) {arch} x {shape} on {rec['n_devices']} devices: "
+                f"flops {rec['flops']:.6e}, useful "
+                f"{rec['useful_flop_ratio']:.4f}, arguments "
+                f"{mem['argument_bytes']} bytes a device "
+                f"({mem['argument_bytes'] / mem['hbm_bytes']:.4f} of 80 GB), "
+                f"compute {r['t_compute']:.4e} s, memory "
+                f"{r['t_memory']:.4e} s, {coll} a device at the H100's "
+                f"rates ({r['bottleneck']})")
+            if not (rec["flops"] > 0 and mem["fits"]):
+                raise AssertionError(f"(w)(2) {rec}")
 
         # (3) the probe sweep of qwen3-0.6b x train_4k: its extrapolation
         # must equal (2)'s direct count
-        t0 = time.perf_counter()
-        w_probe = roofline_sweep.main([
-            "--arch", "qwen3-0.6b", "--shape", "train_4k",
-            "--json", str(ROOT / "chiprun_out" / "w_roofline.json")])[0]
-        w3_s = time.perf_counter() - t0
+        w_probe = w_lm_rec["probe"]
         direct = w_lm[("qwen3-0.6b", "train_4k", 256)]
+        dr = direct["roofline"]
         if (w_probe["flops_per_device"] * 256 != direct["flops"]
                 or w_probe["bytes_per_device"] * 256
-                != direct["bytes_accessed"]):
+                != direct["bytes_accessed"]
+                or (dr["collective_bytes_per_device"] is None)
+                != (w_probe["collective_bytes_per_device"] is None)
+                or (dr["collective_bytes_per_device"] is not None and abs(
+                    w_probe["collective_bytes_per_device"]
+                    - dr["collective_bytes_per_device"])
+                    > 1e-9 * dr["collective_bytes_per_device"])):
             raise AssertionError(f"(w)(3) probes {w_probe} against the "
                                  f"direct count {direct}")
         log(f"[w] (3) roofline_sweep qwen3-0.6b x train_4k: probes "
-            f"extrapolate {w_probe['flops_per_device'] * 256:.6e} flops and "
-            f"{w_probe['bytes_per_device'] * 256:.6e} bytes, equal to (2)'s "
-            f"direct count; {w3_s:.1f} s ((2) took {w2_s:.1f} s)")
+            f"extrapolate {w_probe['flops_per_device'] * 256:.6e} flops, "
+            f"{w_probe['bytes_per_device'] * 256:.6e} bytes and "
+            f"{w_probe['collective_bytes_per_device']} collective bytes a "
+            f"device, equal to (2)'s direct count; {w3_s:.1f} s on the "
+            f"host ((2) took {w2_s:.1f} s, both beside (b)-(v))")
 
         # (1) and (4): each subprocess must exit 0 with its OK line
         for name, (started, proc) in w_procs.items():
@@ -3466,9 +3499,9 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         + f"; launches {per_phase['x']}")
     # (x)(2) placement: qwen3-0.6b whole under torch.distributed.run on
     # DTensors (NCCL) against a plain one-process run of the same steps,
-    # then one moonshot-v1-16b-a3b step (2 of 48 layers at full width)
-    # under the same launch against the plain step; the three processes
-    # run together
+    # then a counted qwen3-0.6b step and one moonshot-v1-16b-a3b step (2
+    # of 48 layers at full width) under the same launch against the plain
+    # step; the three launches run together on four cards
     x_mp = 2 if n_gpus >= 4 else 1
     x_env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     x_tmp = tempfile.mkdtemp()
@@ -3483,16 +3516,24 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
             os.path.join(x_tmp, "sharded")],
         "plain": [sys.executable] + x_train + [
             "--ckpt-dir", os.path.join(x_tmp, "plain")],
-        "moonshot": torchrun + [str(ROOT / "chip_smoke.py"), "--x2-moonshot",
-                                os.path.join(x_tmp, "moonshot.json"),
-                                str(x_mp)]}
-    x_procs = {name: (time.perf_counter(), subprocess.Popen(
-        cmd, cwd=ROOT, env=x_env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for name, cmd in x_cmds.items()}
+        "ranks": torchrun + [str(ROOT / "chip_smoke.py"), "--x2-ranks",
+                             x_tmp, str(x_mp)]}
+    def start(name):
+        return time.perf_counter(), subprocess.Popen(
+            x_cmds[name], cwd=ROOT, env=x_env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    # on fewer than four cards the counted step and the moonshot step wait
+    # for the two qwen3-0.6b runs: the four processes' steps at once
+    # outgrow one card's 80 GB (call 2, PR 26)
+    later = () if n_gpus >= 4 else ("ranks",)
+    x_procs = {name: start(name) for name in x_cmds if name not in later}
     x_out = {}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     try:
-        for name, (started, proc) in x_procs.items():
+        for name in x_cmds:
+            if name not in x_procs:
+                x_procs[name] = start(name)
+            started, proc = x_procs[name]
             out, err = proc.communicate(timeout=600)
             x_out[name] = (out, time.perf_counter() - started)
             (ROOT / "chiprun_out" / f"x2_{name}.log").write_text(
@@ -3538,7 +3579,31 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         f"{x_tol}); {x_out['sharded'][1]:.1f} s and "
         f"{x_out['plain'][1]:.1f} s")
     x_moon = json.loads(pathlib.Path(x_tmp, "moonshot.json").read_text())
+    x_tp = json.loads(pathlib.Path(x_tmp, "qwen3.json").read_text())
     shutil.rmtree(x_tmp, ignore_errors=True)
+    # the collectives the cards issued against the dry-run's count of the
+    # same step on the same mesh (a fake process group, meta tensors)
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    x_want = dryrun.count_collectives(
+        get_config("qwen3-0.6b"), ShapeConfig("x2", X_SEQ, X_BATCH, "train"),
+        "dots", 1, False, tuple(x_tp["mesh"]), ("data", "model"))
+    x_dry_s = time.perf_counter() - t0
+    x_got = {k: (v["calls"], v["bytes"]) for k, v in x_tp["by_axis"].items()}
+    x_dry = {k: (v["calls"], v["bytes"])
+             for k, v in x_want.get("by_axis", {}).items()}
+    log(f"[x] (2) qwen3-0.6b's placed train step on {x_tp['mesh']} "
+        f"(batch {X_BATCH} x {X_SEQ}, bf16, dots, AdamW): peak allocated "
+        f"bytes a card {x_tp['peaks']} (allocated before the step "
+        f"{x_tp['before']}); collectives on the cards (op@axis: calls, "
+        f"output bytes a card) {json.dumps(x_got)}, wire bytes a card "
+        f"{x_tp['bytes']}; the dry-run's count of the same step and mesh "
+        f"{json.dumps(x_dry)}, wire bytes {x_want.get('bytes')} "
+        f"({x_dry_s:.1f} s)")
+    if x_got != x_dry or x_tp["bytes"] != x_want.get("bytes"):
+        raise AssertionError(f"(x)(2) collectives on the cards {x_got} "
+                             f"against the dry-run's {x_want}")
     if x_moon["loss_err"] > 1e-5 or x_moon["grad_err"] > 1e-4:
         raise AssertionError(f"(x)(2) moonshot step {x_moon}")
     log(f"[x] (2) moonshot-v1-16b-a3b, 2 of 48 layers at full width (one "
@@ -3547,24 +3612,31 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         f"{x_moon['loss']:.6f}, rel err {x_moon['loss_err']:.3e} against "
         f"the plain step (1e-5), the largest gradient leaf's error over "
         f"its largest magnitude {x_moon['grad_err']:.3e} (1e-4); "
-        f"{x_out['moonshot'][1]:.1f} s")
+        f"{x_out['ranks'][1]:.1f} s (with the counted qwen3-0.6b step)")
     workloads["lanes and placement (x)"] = {
         "first_ms": (time.perf_counter() - x_start) * 1e3,
         "lanes": x_runs, "qwen3_sharded": x_sharded, "qwen3_plain": x_plain,
         "qwen3_loss_rel_errs": x_errs, "moonshot": x_moon,
+        "qwen3_counted": x_tp, "qwen3_dryrun": x_want,
         "cards": n_gpus, "model_parallel": x_mp}
     log(f"[x] phase {time.perf_counter() - x_start:.1f} s")
 
 
 
-def moonshot_rank(out_path: str, model_parallel: int) -> int:
-    """(x)(2)'s moonshot-v1-16b-a3b step as one process of
-    ``torch.distributed.run``: 2 of its 48 layers at full width, float32,
-    the parameters and a (4, 32) batch placed over the process group's
-    mesh, the loss and the gradients of one step (remat "dots"); process
-    0 then takes the plain step on its card from the same parameters and
-    batch (the MoE dispatch in as many groups) and writes both errors."""
+def x2_rank(out_dir: str, model_parallel: int) -> int:
+    """(x)(2)'s counted qwen3-0.6b step and moonshot-v1-16b-a3b step as
+    one process of ``torch.distributed.run``. First one train step of
+    qwen3-0.6b whole (a (X_BATCH, X_SEQ) batch, bf16 compute, remat
+    "dots", AdamW) on parameters placed over the process group's mesh,
+    under ``CollectiveCounter``: process 0 writes ``qwen3.json`` with the
+    collectives, the mesh and each card's peak allocated bytes. Then 2 of
+    moonshot's 48 layers at full width, float32, the parameters and a
+    (4, 32) batch placed, the loss and the gradients of one step (remat
+    "dots"); process 0 takes the plain step on its card from the same
+    parameters and batch (the MoE dispatch in as many groups) and writes
+    both errors to ``moonshot.json``."""
     import dataclasses
+    import gc
 
     import torch
     import torch.distributed as dist
@@ -3573,13 +3645,49 @@ def moonshot_rank(out_path: str, model_parallel: int) -> int:
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.distributed import sharding
     from repro_torch.launch import train
+    from repro_torch.launch.dryrun import CollectiveCounter
     from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.models import model as lm
-    from repro_torch.train.train_step import remat_loss_fn, value_and_grad
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import (make_train_step, remat_loss_fn,
+                                              value_and_grad)
 
     train.start_process_group()
     mesh = make_host_mesh(model_parallel)
     sharding.set_activation_policy(mesh)
+    out_dir = pathlib.Path(out_dir)
+
+    # the counted qwen3-0.6b step
+    cfg = get_config("qwen3-0.6b")
+    opt = AdamWConfig()
+    params = sharding.place(lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED)), mesh)
+    state = init_opt_state(opt, params)
+    batch = batch_for_step(cfg, ShapeConfig("x2", X_SEQ, X_BATCH, "train"),
+                           0)
+    batch = sharding.place(batch, mesh, sharding.batch_shardings(mesh, batch))
+    step = make_train_step(cfg, opt, remat="dots")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counter = CollectiveCounter(mesh.device_mesh)
+    with counter:
+        out = step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, (peak, before))
+    if dist.get_rank() == 0:
+        summary = counter.summary()
+        (out_dir / "qwen3.json").write_text(json.dumps({
+            "mesh": list(mesh.devices.shape), "peaks": [p for p, _ in peaks],
+            "before": [b for _, b in peaks], "bytes": summary["bytes"],
+            "by_axis": summary["by_axis"],
+            "loss": float(out[2]["loss"])}))
+    del params, state, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()      # the card's memory back to the others
+
     cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=2,
                               compute_dtype="float32")
     params = lm.init_params(
@@ -3603,7 +3711,7 @@ def moonshot_rank(out_path: str, model_parallel: int) -> int:
         grad_err = max(float((a - b).abs().max()
                              / max(float(b.abs().max()), 1e-30))
                        for a, b in zip(grads, want))
-        pathlib.Path(out_path).write_text(json.dumps({
+        (out_dir / "moonshot.json").write_text(json.dumps({
             "loss": loss, "loss_err": abs(loss - float(want_loss))
             / abs(float(want_loss)), "grad_err": grad_err,
             "groups": groups, "leaves": len(want)}))
@@ -3664,9 +3772,53 @@ def phase_x_alone() -> int:
     return 0
 
 
+def w_lm_counts(out_path: str) -> int:
+    """(w)(2) and (3) in a process of their own: the LM dry-run of
+    qwen3-0.6b's four shapes and deepseek-v3-671b x train_4k on both
+    production meshes, each placed again for its collective term
+    (``--all`` counts xlstm-125m's sLSTM scan op by op: minutes on the
+    host), and the probe sweep of qwen3-0.6b x train_4k; their records
+    and seconds written to ``out_path``."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, roofline_sweep
+
+    torch.set_num_threads(2)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    cells = []
+    for arch, shape in ([("qwen3-0.6b", n) for n in SHAPES]
+                        + [("deepseek-v3-671b", "train_4k")]):
+        cells += dryrun.main(["--arch", arch, "--shape", shape,
+                              "--both-meshes"])
+    lm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = roofline_sweep.main([
+        "--arch", "qwen3-0.6b", "--shape", "train_4k",
+        "--json", str(ROOT / "chiprun_out" / "w_roofline.json")])[0]
+    pathlib.Path(out_path).write_text(json.dumps({
+        "cells": cells, "lm_s": lm_s, "probe": probe,
+        "probe_s": time.perf_counter() - t0}))
+    return 0
+
+
+def _stop_background() -> None:
+    for proc in W_LM_PROC:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--x2-moonshot"]:
-        sys.exit(moonshot_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--w-lm"]:
+        sys.exit(w_lm_counts(sys.argv[2]))
+    if sys.argv[1:2] == ["--x2-ranks"]:
+        sys.exit(x2_rank(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:] == ["--phase-x"]:
         sys.exit(phase_x_alone())
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        _stop_background()
+    sys.exit(code)

@@ -29,16 +29,23 @@ each mesh axis ``Shard(d)`` where the axis names tensor dim ``d``,
 ``Replicate()`` elsewhere). ``place`` does that on every mesh that
 carries a process group, one of size 1 included, and moves plain tensors
 on a mesh of one device without one. The model gathers placed
-parameters where it uses them (``gathered``: a layer's at a time, as
-ZeRO-3 does), so its activations are sharded over the batch only, a
-layout DTensor carries through every op of the stack; the MoE expert
-FFN still runs sharded over the experts. The activation policy
-(``set_activation_policy``, ``data_group_size``, ``shard_activation``)
-is the reference's: ``shard_activation`` redistributes a DTensor to its
-fitted spec's placements, and is the identity on a plain tensor or
-without a policy. The model code mixes a DTensor with the plain tensors
-it builds (positions, masks) inside ``spmd_region``, which takes them as
-replicated.
+parameters where it uses them, a layer at a time. The transformer
+layers' projections and the head and embedding are gathered over the
+data group only (``gathered_over_data``, FSDP's all-gather): each keeps
+its ``Shard`` on the ``model`` axis, so the products are split as the
+reference's XLA partitions them (column-parallel ``wq``/``wk``/``wv``,
+``w_gate``/``w_up`` and head, row-parallel ``wo`` and ``w_down``, a
+vocab-parallel embedding), and activations are sharded over the batch
+and, between a column- and a row-parallel product, over the model axis.
+Every other stack (MLA, mamba2, xlstm, zamba2's shared block, the MoE
+router and experts) is gathered whole (``gathered``, as ZeRO-3 does);
+the MoE expert FFN still runs sharded over the experts. The activation
+policy (``set_activation_policy``, ``data_group_size``,
+``shard_activation``) is the reference's: ``shard_activation``
+redistributes a DTensor to its fitted spec's placements, and is the
+identity on a plain tensor or without a policy. The model code mixes a
+DTensor with the plain tensors it builds (positions, masks) inside
+``spmd_region``, which takes them as replicated.
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ from ..launch.mesh import Mesh
 __all__ = ["data_axes", "path_str", "param_spec", "params_shardings",
            "batch_spec", "batch_shardings", "cache_spec", "cache_shardings",
            "map_with_path", "spec_placements", "place", "gathered",
+           "gathered_over_data", "model_sharded", "model_coordinate",
+           "whole_over_model", "reduced", "model_input", "over_model",
            "full_tensors",
            "spmd_region", "set_activation_policy", "data_group_size",
            "shard_activation"]
@@ -301,6 +310,112 @@ def gathered(tree):
     return map_with_path(lambda _, t: t.redistribute(
         t.device_mesh, [Replicate()] * t.device_mesh.ndim)
         if isinstance(t, DTensor) else t, tree)
+
+
+def _replicated_on(t, axes):
+    """A DTensor ``t`` replicated on the mesh axes named in ``axes``, its
+    other placements kept; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    names = t.device_mesh.mesh_dim_names or ()
+    pl = [Replicate() if n in axes else p
+          for n, p in zip(names, t.placements)]
+    return t if tuple(pl) == tuple(t.placements) else t.redistribute(
+        t.device_mesh, pl)
+
+
+def gathered_over_data(tree):
+    """``tree`` with each DTensor leaf replicated on the ``pod`` and
+    ``data`` axes only (FSDP's all-gather; the gradient goes back as a
+    reduce-scatter over the data group), its ``Shard`` on ``model`` kept;
+    plain leaves as they are."""
+    return map_with_path(lambda _, t: _replicated_on(t, ("pod", "data")),
+                         tree)
+
+
+def whole_over_model(t):
+    """A DTensor ``t`` replicated on the ``model`` axis as well (an
+    all-gather over it where ``t`` is sharded there); a plain tensor as it
+    is."""
+    return _replicated_on(t, ("model",))
+
+
+def _model_dim(t):
+    names = t.device_mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def model_sharded(t, dim: int) -> bool:
+    """Whether ``t`` is a DTensor split on tensor dim ``dim`` over a
+    ``model`` axis of more than one device."""
+    if not isinstance(t, DTensor):
+        return False
+    i = _model_dim(t)
+    if i is None or t.device_mesh.size(i) == 1:
+        return False
+    p = t.placements[i]
+    return p.is_shard() and p.dim in (dim, dim + t.ndim)
+
+
+def model_coordinate(t) -> Tuple[int, int]:
+    """(this process's index on the ``model`` axis of DTensor ``t``'s mesh,
+    the axis' size)."""
+    i = _model_dim(t)
+    return t.device_mesh.get_local_rank(i), t.device_mesh.size(i)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The all-reduce (sum) of a local tensor over one process group, whose
+    backward is the identity: each shard's partial term receives the whole
+    gradient of the sum (Megatron's ``g``; DTensor's own redistribution
+    would hand back a partial gradient and gather the activations of the
+    next product to use it)."""
+
+    @staticmethod
+    def forward(ctx, x, group_name):
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_reduce(x, "sum", group_name))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduced(t):
+    """A DTensor ``t`` with each ``Partial`` placement (the sum a
+    row-parallel or vocab-parallel product leaves over the model axis)
+    made ``Replicate``: one all-reduce a partial mesh axis, whose gradient
+    passes back unreduced; a plain tensor as it is."""
+    if not isinstance(t, DTensor) or not any(p.is_partial()
+                                             for p in t.placements):
+        return t
+    mesh = t.device_mesh
+    out_pl = [Replicate() if p.is_partial() else p for p in t.placements]
+    local = t.to_local(grad_placements=out_pl)
+    for i, p in enumerate(t.placements):
+        if p.is_partial():
+            local = _SumOverGroup.apply(local, mesh.get_group(i).group_name)
+    return DTensor.from_local(local, mesh, out_pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def model_input(t):
+    """Megatron's ``f`` at the input of column-parallel products: the
+    identity on DTensor ``t``, whose gradient (the products' input
+    gradients, a partial sum over the model axis) is all-reduced in
+    ``t``'s dtype on its way back; a plain tensor as it is."""
+    if not isinstance(t, DTensor) or _model_dim(t) is None:
+        return t
+    return DTensor.from_local(t.to_local(grad_placements=t.placements),
+                              t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def over_model(t, placement) -> list:
+    """DTensor ``t``'s placements with the ``model`` axis' replaced by
+    ``placement``."""
+    i = _model_dim(t)
+    return [placement if j == i else p for j, p in enumerate(t.placements)]
 
 
 def full_tensors(tree):

@@ -14,7 +14,11 @@ allocation, no device), under two counters:
   are left out).
 
 The counts are global, so they do not depend on the mesh: one run serves
-both meshes of a cell. Memory per device comes from the port's sharding
+both meshes of a cell. The collectives do: each cell's step runs a
+second time for each mesh, placed by the sharding rules as DTensors over
+a fake process group of the mesh's size in this process, under
+``CollectiveCounter`` (``count_collectives``); ``analysis.analyze_cell``
+prices them. Memory per device comes from the port's sharding
 rules over the production mesh's shape (``launch.mesh
 .make_production_mesh``): each leaf's bytes divided by the product of the
 mesh axes its spec names, summed over the step's arguments and, the same
@@ -44,27 +48,37 @@ import argparse
 import functools
 import json
 import os
+import re
 import sys
 import time
 import traceback
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import SHAPES, get_config, list_archs, supports_shape
 from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed import sharding as shd
 from ..distributed.sharding import (batch_shardings, cache_shardings,
-                                    params_shardings)
+                                    map_with_path, params_shardings,
+                                    spec_placements)
 from ..models.model import tree_map
-from ..roofline.analysis import H100_HBM_BYTES, analyze_cell, model_flops
+from ..roofline.analysis import (GPUS_PER_NODE, H100_HBM_BYTES, NIC_BW,
+                                 NVLINK_BW, analyze_cell, model_flops)
 from ..train.optimizer import AdamWConfig
 from ..train.train_step import (make_prefill_step, make_serve_step,
                                 make_train_step)
-from .mesh import make_production_mesh
+from .mesh import Mesh, make_production_mesh
 from .specs import input_specs
 
-__all__ = ["ByteCounter", "count_step", "lower_cell", "run_cell",
+__all__ = ["ByteCounter", "CollectiveCounter", "wire_bytes", "count_step",
+           "count_collectives", "lower_cell", "run_cell",
            "sam_dryrun", "parse_kv", "write_json", "main"]
 
 # ops that allocate without reading or writing an element
@@ -101,6 +115,89 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
+# the c10d functional collectives, by op name, as the reference's HLO
+# names them
+_COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all"}
+
+
+def wire_bytes(op: str, size: int, g: int) -> float:
+    """The bytes one device sends for a collective over ``g`` devices whose
+    output holds ``size`` bytes on it, in the ring model of the
+    reference's ``collective_bytes``: all-reduce 2·S·(g−1)/g, all-gather
+    S_out·(g−1)/g, reduce-scatter S_out·(g−1), all-to-all S·(g−1)/g."""
+    if op == "all-reduce":
+        return 2.0 * size * (g - 1) / g
+    if op == "reduce-scatter":
+        return float(size * (g - 1))
+    return size * (g - 1) / g
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Records every ``c10d_functional`` collective that runs under it (the
+    ones DTensor issues as it redistributes, implicit ones included) and
+    DTensor's own all-to-all on CUDA meshes (``_dtensor.shard_dim_alltoall``):
+    in ``records`` a tuple (op, mesh axis, group size, output bytes on this
+    process) a call, the axis named from ``device_mesh``'s groups (None
+    for a group that is no single mesh axis). Any other ``c10d`` or
+    ``_dtensor`` op is recorded unpriced, as ``"c10d.<name>"`` or
+    ``"_dtensor.<name>"``. ``summary()`` prices the records with
+    ``wire_bytes``."""
+
+    def __init__(self, device_mesh=None):
+        super().__init__()
+        self.records = []
+        self._axes = {}
+        if device_mesh is not None:
+            for i, name in enumerate(device_mesh.mesh_dim_names or ()):
+                self._axes[device_mesh.get_group(i).group_name] = name
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **(kwargs or {}))
+        if any(t is DTensor for t in types):
+            # let DTensor run and desugar into local ops and collectives,
+            # which come back through this mode
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        ns, name = func.namespace, func.overloadpacket.__name__
+        if (ns == "_c10d_functional" and name in _COLLECTIVES) or (
+                ns == "_dtensor" and name == "shard_dim_alltoall"):
+            group = next(a for a in reversed(args) if isinstance(a, str))
+            g = torch.distributed.distributed_c10d._resolve_process_group(
+                group).size()
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in _tensors(out))
+            self.records.append((_COLLECTIVES.get(name, "all-to-all"),
+                                 self._axes.get(group), int(g), int(nbytes)))
+        elif ns in ("c10d", "_dtensor"):
+            self.records.append((f"{ns}.{name}", None, 0, 0))
+        return out
+
+    def summary(self) -> Dict:
+        """``{"bytes": the wire bytes a device, "bytes_by_op": {op: wire
+        bytes}, "counts": {op: calls}, "by_axis": {"op@axis": {"calls",
+        "bytes" (output bytes), "wire"}}}``."""
+        total, by_op, counts, by_axis = 0.0, {}, {}, {}
+        for op, axis, g, nbytes in self.records:
+            wire = wire_bytes(op, nbytes, g) if g else 0.0
+            total += wire
+            by_op[op] = by_op.get(op, 0.0) + wire
+            counts[op] = counts.get(op, 0) + 1
+            row = by_axis.setdefault(f"{op}@{axis or f'group of {g}'}",
+                                     {"calls": 0, "bytes": 0, "wire": 0.0})
+            row["calls"] += 1
+            row["bytes"] += nbytes
+            row["wire"] += wire
+        return {"bytes": total, "bytes_by_op": by_op, "counts": counts,
+                "by_axis": by_axis}
+
+
 def count_step(step, *args):
     """(``step(*args)``, its cost): ``"flops"`` from ``FlopCounterMode``,
     ``"bytes accessed"`` from ``ByteCounter``."""
@@ -130,6 +227,128 @@ def _cell_run(cfg: ModelConfig, shape: ShapeConfig, remat: str,
     return specs, out, cost
 
 
+def _placed_meta(tree, shardings, mesh):
+    """``tree``'s meta tensors as DTensors on ``mesh.device_mesh`` by
+    ``shardings`` (a tree of specs of ``tree``'s structure), each process's
+    shard a meta tensor of its local shape."""
+    dm = mesh.device_mesh
+
+    def put(path, t):
+        spec = shardings
+        for k in path:
+            spec = spec[k]
+        pl = spec_placements(spec, mesh)
+        local = list(t.shape)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                local[p.dim] //= dm.size(i)
+        return DTensor.from_local(
+            torch.empty(local, dtype=t.dtype, device="meta"), dm, pl,
+            run_check=False, shape=t.shape, stride=t.stride())
+    return map_with_path(put, tree)
+
+
+def _refused_op(exc: Exception) -> str:
+    """The op named in a refusal's message (DTensor names the aten op it
+    has no rule for), else the message's first line."""
+    text = str(exc)
+    m = re.search(r"aten\.[A-Za-z0-9_]+(\.[A-Za-z0-9_]+)?", text)
+    first = text.strip().splitlines()[0] if text.strip() else ""
+    return m.group(0) if m else f"{type(exc).__name__}: {first[:200]}"
+
+
+def count_collectives(cfg: ModelConfig, shape: ShapeConfig, remat: str,
+                      n_micro: int, compress_grads: bool,
+                      mesh_shape: Tuple[int, ...],
+                      axis_names: Tuple[str, ...]) -> Dict:
+    """The collectives of one cell's step placed on a mesh of
+    ``mesh_shape``: the step run again on meta tensors placed as DTensors
+    by the sharding rules over a ``"fake"`` process group of that many
+    ranks in this process (its collectives move nothing), the activation
+    policy on, under ``CollectiveCounter``. The ``DeviceMesh`` is a CUDA
+    one (no device is touched) where torch is built for CUDA; a CPU-only
+    build takes a CPU mesh, on which DTensor turns an all-to-all into an
+    all-gather and a local chunk (the MoE dispatch's, counted as that).
+    Returns the summary with the seconds at each group's link rate
+    (``"time_s"``, ``"by_axis_s"``), or ``{"refused": op, "error":
+    message}`` where the placed step fails."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n = int(np.prod(mesh_shape))
+    if dist.is_initialized():
+        return {"refused": "init_process_group",
+                "error": "a process group is already initialized"}
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    old_policy = shd._ACT_POLICY
+    try:
+        # a CUDA mesh, as on the cards, where torch is built for CUDA
+        # (DTensor's collectives depend on the device type: a CPU mesh
+        # gathers where a CUDA one exchanges all to all, and a CPU-only
+        # build cannot propagate some ops' shardings on a CUDA mesh)
+        dm = init_device_mesh(
+            "cuda" if torch.backends.cuda.is_built() else "cpu", mesh_shape,
+            mesh_dim_names=axis_names)
+        devs = np.empty(n, dtype=object)
+        devs[:] = [torch.device("meta")] * n
+        mesh = Mesh(devs.reshape(mesh_shape), axis_names, dm)
+        shd.set_activation_policy(mesh)
+        opt = AdamWConfig()
+        specs = input_specs(cfg, shape, opt)
+        batch = specs["batch"]
+        b_sh = (tree_map(lambda a: (None,) * a.ndim, batch)
+                if shape.global_batch == 1 else batch_shardings(mesh, batch))
+        args = [_placed_meta(specs["params"], params_shardings(
+            specs["params"], mesh), mesh)]
+        if shape.kind == "train":
+            step = make_train_step(cfg, opt, remat=remat, n_micro=n_micro,
+                                   compress_grads=compress_grads)
+            args.append(_placed_meta(specs["opt_state"], params_shardings(
+                specs["opt_state"], mesh), mesh))
+        else:
+            step = (make_serve_step(cfg) if shape.kind == "decode"
+                    else make_prefill_step(cfg))
+            args.append(_placed_meta(specs["caches"], cache_shardings(
+                mesh, specs["caches"], shape.global_batch > 1), mesh))
+        args.append(_placed_meta(batch, b_sh, mesh))
+        counter = CollectiveCounter(dm)
+        try:
+            with counter:
+                step(*args)
+        except Exception as e:  # noqa: BLE001 - the cell records it
+            return {"refused": _refused_op(e), "error": str(e)[:2000]}
+        out = counter.summary()
+        out["time_s"], out["by_axis_s"] = _collective_time(
+            out["by_axis"], dict(zip(axis_names, mesh_shape)))
+        return out
+    finally:
+        shd._ACT_POLICY = old_policy
+        dist.destroy_process_group()
+
+
+def _node_local(mesh_shape: Dict[str, int], axis: str,
+                per_node: int = GPUS_PER_NODE) -> bool:
+    """Whether every group of the mesh axis ``axis`` lies inside one node
+    of ``per_node`` GPUs, ranks numbered row-major over the mesh."""
+    names = list(mesh_shape)
+    ranks = np.arange(int(np.prod(list(mesh_shape.values())))).reshape(
+        tuple(mesh_shape.values()))
+    groups = np.moveaxis(ranks, names.index(axis), -1).reshape(
+        -1, mesh_shape[axis])
+    return bool((groups.min(1) // per_node == groups.max(1)
+                 // per_node).all())
+
+
+def _collective_time(by_axis: Dict, mesh_shape: Dict[str, int]):
+    """(seconds, {"op@axis": seconds}): each row's wire bytes over NVLink's
+    rate where its axis' groups lie inside one node, else over the NIC's."""
+    rows = {}
+    for key, row in by_axis.items():
+        axis = key.split("@", 1)[1]
+        inside = axis in mesh_shape and _node_local(mesh_shape, axis)
+        rows[key] = row["wire"] / (NVLINK_BW if inside else NIC_BW)
+    return sum(rows.values()), rows
+
+
 def _shard_factor(spec, mesh) -> int:
     n = 1
     for axes in spec:
@@ -156,9 +375,12 @@ def _sharded_bytes(tree, specs, mesh) -> int:
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                remat: str = "dots", n_micro: int = 1,
-               compress_grads: bool = False, mesh=None, cfg_override=None):
+               compress_grads: bool = False, mesh=None, cfg_override=None,
+               collectives: bool = True):
     """Returns (cost, meta) for one cell: ``count_step``'s cost of the
-    step's run on meta tensors (global counts) and the record."""
+    step's run on meta tensors (global counts) and the record; with
+    ``collectives``, ``meta["collectives"]`` holds the step's collectives
+    placed on ``mesh``'s shape (``count_collectives``)."""
     cfg = cfg_override or get_config(arch)
     shape = SHAPES[shape_name]
     if not supports_shape(cfg, shape_name):
@@ -207,6 +429,10 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "fits": bool(arg_bytes <= H100_HBM_BYTES),
         },
     }
+    if collectives:
+        meta["collectives"] = count_collectives(
+            cfg, shape, remat, n_micro, compress_grads,
+            tuple(mesh.devices.shape), tuple(mesh.axis_names))
     return cost, meta
 
 
@@ -230,8 +456,12 @@ def run_cell(arch, shape_name, *, multi_pod=False, remat="dots", n_micro=1,
           f"{meta['bytes_accessed']:.6e}; model flops "
           f"{meta['model_flops']:.6e} (useful ratio "
           f"{meta['useful_flop_ratio']:.3f})")
+    coll = (f"{r['t_collective']:.3e}s "
+            f"({r['collective_bytes_per_device']:.6e} bytes a device)"
+            if r["t_collective"] is not None else
+            f"none ({r['collective_detail'].get('refused', 'not counted')})")
     print(f"  roofline (H100, bf16): compute={r['t_compute']:.3e}s "
-          f"memory={r['t_memory']:.3e}s collective=none "
+          f"memory={r['t_memory']:.3e}s collective={coll} "
           f"bottleneck={r['bottleneck']}")
     return meta
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import coord_ops as co
+from ..distributed import sharding as shd
 
 __all__ = ["device_of", "normal", "rms_norm", "init_rms", "dense_init",
            "rope_angles", "apply_rope", "init_mlp", "apply_mlp",
@@ -104,15 +105,33 @@ def init_mlp(gen: Optional[torch.Generator], d_model: int, d_ff: int,
 def apply_mlp(p: dict, x: torch.Tensor, activation: str = "silu",
               compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Gated MLP: ``(act(x Wg) * (x Wu)) Wd``, the activation taken in
-    float32 (SiLU, or tanh-approximated GELU for ``"gelu"``)."""
+    float32 (SiLU, or tanh-approximated GELU for ``"gelu"``).
+
+    Placed with ``w_gate`` and ``w_up`` split over the model axis on their
+    output dim and ``w_down`` on its input dim, the products are column-
+    then row-parallel: the activation and the product run on each shard's
+    columns, and the result is a float32 ``Partial`` sum over the model
+    axis for the caller to reduce and cast. Where the three are not all
+    split, they are made whole over the model axis first."""
+    split = (shd.model_sharded(p["w_gate"], 1) and shd.model_sharded(
+        p["w_up"], 1) and shd.model_sharded(p["w_down"], 0))
+    if not split:
+        p = {k: shd.whole_over_model(v) for k, v in p.items()}
     x = x.to(compute_dtype)
+    if split:
+        x = shd.model_input(x)
     g = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
     if activation == "silu":
         act = F.silu(g.float())
     else:
         act = F.gelu(g.float(), approximate="tanh")
-    return (act.to(compute_dtype) * u) @ p["w_down"].to(compute_dtype)
+    h = act.to(compute_dtype) * u
+    if split:
+        # row-parallel: float32 partial products, summed before one
+        # rounding to the compute dtype
+        return h.float() @ p["w_down"].to(compute_dtype).float()
+    return h @ p["w_down"].to(compute_dtype)
 
 
 def init_embedding(gen: Optional[torch.Generator], vocab: int, d_model: int,
@@ -145,10 +164,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in float32; with ``mask``, the mean over
     the masked tokens (``sum(mask)`` at least 1)."""
-    logits = logits.float()
+    # placed, the vocabulary-parallel logits are gathered into whole rows
+    # once, for the normalizer and the label pick alike
+    logits = _whole_last_dim(logits.float())
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(_whole_last_dim(logits), -1,
-                      labels.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     # placed, the token losses are summed whole on every process, in one
     # device's order, so a loss does not depend on the mesh
     nll = _replicated(logz - ll)

@@ -35,10 +35,14 @@ the embeddings, on each layer's output and on the logits
 parameters placed over a process group's mesh and changes nothing
 without a policy or on plain tensors. Placed parameters are gathered
 where they are used (each stack a layer at a time, inside the layer's
-checkpoint under remat), so activations are sharded over the batch
-only; ``forward``
-runs inside ``spmd_region``, so the plain tensors it builds meet
-DTensors as replicated ones. Token ids outside the vocabulary raise ``ValueError``
+checkpoint under remat): a transformer layer's attention (not MLA's)
+and MLP, the embedding and the head over the data group only, so their
+products are split over the model axis by the reference's sharding
+rules (``distributed.sharding``; a row-parallel product's partial sum
+is reduced before the residual add), everything else whole, so its
+activations are sharded over the batch only. ``forward`` runs inside
+``spmd_region``, so the plain tensors it builds meet DTensors as
+replicated ones. Token ids outside the vocabulary raise ``ValueError``
 where the reference's gather would clamp them.
 """
 from __future__ import annotations
@@ -53,7 +57,12 @@ from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..core import coord_ops as co
-from ..distributed.sharding import gathered, shard_activation, spmd_region
+from torch.distributed.tensor import Partial
+from torch.distributed.tensor.experimental import local_map
+
+from ..distributed import sharding as shd
+from ..distributed.sharding import (gathered, gathered_over_data, reduced,
+                                    shard_activation, spmd_region)
 from .attention import attention, init_attention, init_kv_cache
 from .common import (apply_mlp, cross_entropy, dense_init, device_of,
                      init_embedding, init_mlp, init_rms, rms_norm)
@@ -263,7 +272,9 @@ def _tf_layer(cfg: ModelConfig, p, x, moe: bool, cache=None, prefix_len=None):
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm, window=cfg.window, prefix_len=prefix_len,
             compute_dtype=cfg.cdtype, cache=cache, soft_cap=cfg.soft_cap)
-    x = x + a.to(x.dtype)
+    # a row-parallel product ends in a float32 partial sum over the model
+    # axis, reduced here (one all-reduce for attention, one for the MLP)
+    x = x + reduced(a).to(x.dtype)
     h = rms_norm(x, p["ln2"], add_unit_offset=gelu)
     if moe:
         m = apply_moe(p["moe"], h, k=cfg.top_k, dispatch=cfg.moe_dispatch,
@@ -271,7 +282,19 @@ def _tf_layer(cfg: ModelConfig, p, x, moe: bool, cache=None, prefix_len=None):
     else:
         m = apply_mlp(p["mlp"], h, activation=cfg.activation,
                       compute_dtype=cfg.cdtype)
-    return x + m.to(x.dtype), new_cache
+    return x + reduced(m).to(x.dtype), new_cache
+
+
+def _tf_gather(cfg: ModelConfig) -> Callable:
+    """The gather of a transformer layer's placed parameters: attention
+    (but MLA) and the MLP over the data group only, so their products
+    split over the model axis; the norms and the MoE block whole."""
+    split = ("mlp",) if cfg.use_mla else ("attn", "mlp")
+
+    def gather(lp):
+        return {k: gathered_over_data(v) if k in split else gathered(v)
+                for k, v in lp.items()}
+    return gather
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -310,16 +333,18 @@ def _remat(name) -> Optional[Callable]:
     return wrap
 
 
-def _scan_stack(stack, x, layer_fn, caches=None, remat=None):
+def _scan_stack(stack, x, layer_fn, caches=None, remat=None,
+                gather=gathered):
     """``layer_fn`` over a stacked layer tree, layer by layer, with each
     layer's slice of the stacked caches; returns (x, the new caches
     stacked, or None without caches). ``remat`` (a wrapper from
-    ``_remat``) checkpoints each layer when there are no caches."""
+    ``_remat``) checkpoints each layer when there are no caches.
+    ``gather`` gathers a layer's placed parameters where it runs."""
     n = _stack_len(stack)
     layers = _unstack(stack, n)
     if caches is None:
         def body(lp, h):
-            return shard_activation(layer_fn(gathered(lp), h, None)[0])
+            return shard_activation(layer_fn(gather(lp), h, None)[0])
         if remat is not None:
             body = remat(body)
         for lp in layers:
@@ -327,21 +352,52 @@ def _scan_stack(stack, x, layer_fn, caches=None, remat=None):
         return x, None
     new_caches = []
     for lp, c in zip(layers, _unstack(caches, n)):
-        x, c2 = layer_fn(gathered(lp), x, c)
+        x, c2 = layer_fn(gather(lp), x, c)
         x = shard_activation(x)
         new_caches.append(c2)
     return x, (tree_stack(new_caches) if n else caches)
 
 
 def _check_tokens(cfg: ModelConfig, tokens: torch.Tensor) -> None:
-    if tokens.device.type == "meta":     # no ids to read (the dry-run)
-        return
     if isinstance(tokens, DTensor):      # every process checks them all
         tokens = tokens.full_tensor()
+    if tokens.device.type == "meta":     # no ids to read (the dry-run)
+        return
     lo, hi = (int(v) for v in torch.aminmax(tokens))
     if lo < 0 or hi >= cfg.vocab:
         raise ValueError(f"token ids must lie in [0, {cfg.vocab}); got "
                          f"[{lo}, {hi}]")
+
+
+def _lookup(ids, emb):
+    """``emb[ids]``. A table placed with its vocabulary split over the model
+    axis is looked up vocab-parallel, as Megatron does: each shard reads
+    the ids in its rows and zeros the rest, leaving a ``Partial`` sum over
+    the model axis (torch's embedding op on such a DTensor has no
+    backward: DTensor cannot turn the gradient's partial sum into its
+    masked one). Any other placed table is made whole over the model axis
+    and read by torch's embedding op, whose backward DTensor carries (the
+    index form's, ``index_put``, fails on torch 2.11 with the ids sharded
+    over the batch)."""
+    if not isinstance(emb, DTensor):
+        return emb[ids]
+    if not shd.model_sharded(emb, 0):
+        return F.embedding(ids, shd.whole_over_model(emb))
+    rank, size = shd.model_coordinate(emb)
+    rows = emb.shape[0] // size
+
+    def local(i, table):
+        j = i - rank * rows
+        hit = (j >= 0) & (j < rows)
+        out = F.embedding(torch.where(hit, j, torch.zeros_like(j)), table)
+        return out.masked_fill(~hit[..., None], 0)
+    grad_pl = [Partial() if p.is_replicate() else p
+               for p in emb.placements]
+    return local_map(
+        local, out_placements=(shd.over_model(ids, Partial()),),
+        in_placements=(ids.placements, emb.placements),
+        in_grad_placements=(ids.placements, grad_pl),
+        device_mesh=emb.device_mesh)(ids, emb)
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
@@ -353,12 +409,9 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     else:
         tokens = batch["tokens"]
         _check_tokens(cfg, tokens)
-        ids, emb = tokens.long(), params["embed"]
-        # a placed table is looked up by torch's embedding op, whose
-        # backward DTensor carries (the index form's, ``index_put``, fails
-        # on torch 2.11 with the ids sharded over the batch)
-        x = (F.embedding(ids, emb) if isinstance(emb, DTensor)
-             else emb[ids]).to(cd)
+        x = _lookup(tokens.long(), params["embed"]).to(cd)
+        # a vocab-parallel lookup's partial sum, reduced (one all-reduce)
+        x = reduced(x)
         prefix_len = None
         if cfg.frontend == "siglip_stub":
             patches = (batch["patches"].to(cd)
@@ -373,6 +426,9 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 # the stacks that ``_scan_stack`` runs, whose layers it gathers one by one
 _GATHERED_BY_LAYER = ("layers", "dense_layers", "mamba_layers")
+# the leaves split over the model axis where they are used: the
+# vocab-parallel embedding and the column-parallel head
+_SPLIT_TOP = ("embed", "lm_head")
 
 
 def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
@@ -386,7 +442,8 @@ def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
 def _forward(cfg: ModelConfig, params, batch, caches, remat):
     # placed parameters are gathered where they are used: the stacks a
     # layer at a time (in ``_scan_stack``), the rest here
-    params = {k: v if k in _GATHERED_BY_LAYER else gathered(v)
+    params = {k: v if k in _GATHERED_BY_LAYER else
+              gathered_over_data(v) if k in _SPLIT_TOP else gathered(v)
               for k, v in params.items()}
     x, prefix_len = embed_inputs(cfg, params, batch)
     x = shard_activation(x)
@@ -396,7 +453,8 @@ def _forward(cfg: ModelConfig, params, batch, caches, remat):
         def fn(lp, h, c):
             return _tf_layer(cfg, lp, h, False, c, prefix_len)
         x, nc = _scan_stack(params["layers"], x, fn,
-                            caches["layers"] if caches else None, remat)
+                            caches["layers"] if caches else None, remat,
+                            _tf_gather(cfg))
         new_caches["layers"] = nc
     elif cfg.family == "moe":
         if "dense_layers" in params:
@@ -404,13 +462,14 @@ def _forward(cfg: ModelConfig, params, batch, caches, remat):
                 return _tf_layer(cfg, lp, h, False, c)
             x, nc = _scan_stack(params["dense_layers"], x, fn,
                                 caches["dense_layers"] if caches else None,
-                                remat)
+                                remat, _tf_gather(cfg))
             new_caches["dense_layers"] = nc
 
         def fn_moe(lp, h, c):
             return _tf_layer(cfg, lp, h, True, c)
         x, nc = _scan_stack(params["layers"], x, fn_moe,
-                            caches["layers"] if caches else None, remat)
+                            caches["layers"] if caches else None, remat,
+                            _tf_gather(cfg))
         new_caches["layers"] = nc
     elif cfg.family == "ssm":
         x, new_caches = _ssm_forward(cfg, params, x, caches)
@@ -421,7 +480,10 @@ def _forward(cfg: ModelConfig, params, batch, caches, remat):
                  add_unit_offset=(cfg.activation == "gelu"))
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(cfg.cdtype)
-    logits = shard_activation(x.to(cfg.cdtype) @ head, "logits")
+    x = x.to(cfg.cdtype)
+    if shd.model_sharded(head, 1):      # column-parallel logits
+        x = shd.model_input(x)
+    logits = shard_activation(x @ head, "logits")
     if cfg.frontend == "siglip_stub":
         logits = logits[:, cfg.n_patches:]        # text positions only
     return logits, (new_caches if caches is not None else None)
@@ -451,7 +513,9 @@ def _ssm_forward(cfg, params, x, caches):
                           cache=c)
             new_caches["mlstm"].append(c2)
             mi += 1
-        x = x + y.to(x.dtype)
+        # each layer's output split over the batch only, as a scanned
+        # stack's is (DTensor would carry a layer's own layout onward)
+        x = shard_activation(x + y.to(x.dtype))
     if caches is not None and new_caches["mlstm"]:
         new_caches["mlstm"] = tree_stack(new_caches["mlstm"])
     return x, new_caches
@@ -480,6 +544,7 @@ def _hybrid_forward(cfg, params, x, caches, remat=None):
         new_caches["mamba"].append(c2)
         ac = caches["attn"][gi] if caches else None
         x, ac2 = _tf_layer(cfg, params["shared_attn"], x, False, ac)
+        x = shard_activation(x)
         new_caches["attn"].append(ac2)
     return x, new_caches
 

@@ -1,16 +1,20 @@
-"""Two-term roofline bounds on one NVIDIA H100 (SXM, data-sheet rates).
+"""Three-term roofline bounds on NVIDIA H100s (SXM, data-sheet rates).
 
-    compute  t = operations / peak operation rate of their type
-    memory   t = bytes moved / HBM bandwidth
+    compute     t = operations / peak operation rate of their type
+    memory      t = bytes moved / HBM bandwidth
+    collective  t = wire bytes a device / link rate of the group
 
 A port of ``model_flops``, ``kernel_roofline`` and ``analyze_cell`` from
 ``repro.roofline.analysis``, with the H100's rates in place of the
 TPU v5e's. ``analyze_cell`` reads what ``launch.dryrun.lower_cell``
-counted over one run of a step on meta tensors, not a compiled
-artefact; the reference's readers of the optimized HLO text
-(``collective_bytes``, ``major_bytes``) have no counterpart, and the
-cells are counted without a placement, so there is no collective term
-yet (ROADMAP.md, queue 1).
+counted over runs of a step on meta tensors, not a compiled artefact:
+FLOPs and bytes from the unplaced run, the collectives from the run
+placed on the mesh (``launch.dryrun.CollectiveCounter``, priced in the
+reference's ring model). The reference's reader of the optimized HLO
+text for bytes (``major_bytes``) has no counterpart. A group inside one
+8-GPU node moves its bytes at NVLink 4's 450 GB/s a direction
+(``NVLINK_BW``), a group that spans nodes at one 400 Gb/s NIC a GPU,
+50 GB/s (``NIC_BW``).
 Which rate a kernel's operations run at is the caller's choice:
 ``H100_BF16_FLOPS`` for bfloat16 products on the tensor cores,
 ``H100_3XTF32_FLOPS`` for float32 products as three TF32 passes (what
@@ -26,37 +30,56 @@ H100_TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_HBM_BYTES = 80 * 10 ** 9    # the data sheet's 80 GB of HBM3
+NVLINK_BW = 450e9                # NVLink 4, bytes/s a direction
+NIC_BW = 50e9                    # one 400 Gb/s NIC a GPU, bytes/s
+GPUS_PER_NODE = 8                # an HGX H100 node
 
 __all__ = ["H100_HBM_BW", "H100_BF16_FLOPS", "H100_TF32_FLOPS",
            "H100_3XTF32_FLOPS", "H100_FP32_FLOPS", "H100_HBM_BYTES",
-           "analyze_cell", "model_flops", "kernel_roofline"]
+           "NVLINK_BW", "NIC_BW", "GPUS_PER_NODE", "analyze_cell",
+           "model_flops", "kernel_roofline"]
 
 
 def analyze_cell(cost: Dict, meta: Dict) -> Dict:
     """The roofline record of one dry-run cell, from the global counts of
     ``lower_cell``'s step run (``cost``: ``"flops"`` and ``"bytes
-    accessed"``) and its ``meta`` (``"n_devices"``).
+    accessed"``) and its ``meta`` (``"n_devices"``, and ``"collectives"``:
+    the placed run's ``CollectiveCounter.summary()`` with its seconds, or
+    the op that refused placement).
 
     ``flops_per_device`` and ``bytes_per_device`` are the global counts
     split evenly over the mesh's devices; XLA's figures in the reference
     are those of the partitioned module, which may differ from an even
     split. Compute runs at the bf16 tensor-core rate (the steps compute in
-    bfloat16), memory at the HBM rate. ``t_collective`` is None: the
-    port has no collectives yet, so ``bottleneck`` is compute or memory.
-    """
+    bfloat16), memory at the HBM rate. ``collective_bytes_per_device`` is
+    the wire bytes of one device's collectives and ``t_collective`` their
+    time at each group's link rate; both are None, and
+    ``collective_detail`` names the op, where the cell could not be
+    placed."""
     n_dev = max(int(meta.get("n_devices", 1)), 1)
     flops_dev = float(cost.get("flops", 0.0)) / n_dev
     bytes_dev = float(cost.get("bytes accessed", 0.0)) / n_dev
     t_compute = flops_dev / H100_BF16_FLOPS
     t_memory = bytes_dev / H100_HBM_BW
-    t_step = max(t_compute, t_memory)
+    coll = meta.get("collectives") or {"refused": "not counted"}
+    if "refused" in coll:
+        wire, t_coll, detail = None, None, dict(coll)
+    else:
+        wire, t_coll = float(coll["bytes"]), float(coll["time_s"])
+        detail = {k: coll[k] for k in ("bytes_by_op", "counts", "by_axis",
+                                       "by_axis_s")}
+    terms = {"compute": t_compute, "memory": t_memory}
+    if t_coll is not None:
+        terms["collective"] = t_coll
+    t_step = max(terms.values())
     return {
         "flops_per_device": flops_dev,
         "bytes_per_device": bytes_dev,
-        "collective_bytes_per_device": None,
+        "collective_bytes_per_device": wire,
+        "collective_detail": detail,
         "t_compute": t_compute, "t_memory": t_memory,
-        "t_collective": None,
-        "bottleneck": "compute" if t_compute >= t_memory else "memory",
+        "t_collective": t_coll,
+        "bottleneck": max(terms, key=terms.get),
         "t_step_bound": t_step,
         "roofline_fraction": (t_compute / t_step) if t_step > 0 else 0.0,
     }

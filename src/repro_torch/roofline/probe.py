@@ -18,9 +18,11 @@ the full-architecture terms are extrapolated with the real layer counts:
 
 Batch-size/sequence terms are untouched (probes keep the full shape).
 The rates are the H100's (``analysis.H100_BF16_FLOPS``,
-``analysis.H100_HBM_BW``). The cells are counted without a placement,
-so there is no collective term yet (ROADMAP.md, queue 1):
-``t_collective`` is None and ``bottleneck`` is compute or memory.
+``analysis.H100_HBM_BW``). ``collective_bytes_per_device`` is
+extrapolated like the FLOPs (every layer issues the same collectives),
+and so is ``t_collective`` (each collective's seconds at its group's
+link rate, ``analysis.NVLINK_BW`` or ``analysis.NIC_BW``); both are None
+where a probe could not be placed.
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ def layer_counts(cfg: ModelConfig) -> Dict[str, int]:
     raise ValueError(cfg.family)
 
 
-METRICS = ("flops_per_device", "bytes_per_device")
+METRICS = ("flops_per_device", "bytes_per_device",
+           "collective_bytes_per_device")
 
 
 def solve_and_extrapolate(probes: List[Tuple[Dict, Dict]],
@@ -79,30 +82,17 @@ def solve_and_extrapolate(probes: List[Tuple[Dict, Dict]],
     constructed so differences isolate one variable at a time.
     """
     keys = sorted({k for c, _ in probes for k in c})
-    base_counts, base_r = probes[0]
     out = {}
-    for metric in METRICS:
-        per = {}
-        for c, r in probes[1:]:
-            # which single key differs from the base probe?
-            diff = [k for k in keys if c.get(k, 0) != base_counts.get(k, 0)]
-            assert len(diff) == 1, (c, base_counts)
-            k = diff[0]
-            per[k] = ((r[metric] - base_r[metric])
-                      / (c[k] - base_counts[k]))
-        base = base_r[metric] - sum(
-            per.get(k, 0.0) * base_counts.get(k, 0) for k in keys)
-        total = base + sum(per.get(k, 0.0) * full_counts.get(k, 0)
-                           for k in keys)
-        out[metric] = max(total, 0.0)
-        out[f"{metric}/base"] = base
-        for k in keys:
-            out[f"{metric}/per_{k}"] = per.get(k, 0.0)
-    out["collective_bytes_per_device"] = None
+    for metric in METRICS + ("t_collective",):
+        if any(r.get(metric) is None for _, r in probes):
+            out[metric] = None
+        else:
+            out.update(_extrapolate(probes, full_counts, keys, metric))
     out["t_compute"] = out["flops_per_device"] / H100_BF16_FLOPS
     out["t_memory"] = out["bytes_per_device"] / H100_HBM_BW
-    out["t_collective"] = None
     terms = {"compute": out["t_compute"], "memory": out["t_memory"]}
+    if out["t_collective"] is not None:
+        terms["collective"] = out["t_collective"]
     out["bottleneck"] = max(terms, key=terms.get)
     t_step = max(terms.values())
     out["t_step_bound"] = t_step
@@ -110,12 +100,35 @@ def solve_and_extrapolate(probes: List[Tuple[Dict, Dict]],
     return out
 
 
+def _extrapolate(probes, full_counts, keys, metric) -> Dict[str, float]:
+    """``metric`` at the full layer counts, its base and its cost a layer
+    of each type, from the probe differences."""
+    base_counts, base_r = probes[0]
+    per = {}
+    for c, r in probes[1:]:
+        # which single key differs from the base probe?
+        diff = [k for k in keys if c.get(k, 0) != base_counts.get(k, 0)]
+        assert len(diff) == 1, (c, base_counts)
+        k = diff[0]
+        per[k] = ((r[metric] - base_r[metric])
+                  / (c[k] - base_counts[k]))
+    base = base_r[metric] - sum(
+        per.get(k, 0.0) * base_counts.get(k, 0) for k in keys)
+    total = base + sum(per.get(k, 0.0) * full_counts.get(k, 0)
+                       for k in keys)
+    out = {metric: max(total, 0.0), f"{metric}/base": base}
+    for k in keys:
+        out[f"{metric}/per_{k}"] = per.get(k, 0.0)
+    return out
+
+
 def probe_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                remat: str = "dots", n_micro: int = 1, mesh=None,
-               cfg_override=None) -> Dict:
+               cfg_override=None, collectives: bool = True) -> Dict:
     """Probe-extrapolated roofline for one (arch x shape) cell;
     ``cfg_override`` probes another configuration (a reduced one) under
-    ``arch``'s name."""
+    ``arch``'s name; without ``collectives`` the probes are not placed
+    and the collective term is None."""
     from ..configs import get_config
     from ..launch import dryrun
 
@@ -125,7 +138,8 @@ def probe_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     for counts, pcfg in probe_configs(cfg):
         cost, meta = dryrun.lower_cell(
             arch, shape_name, multi_pod=multi_pod, remat=remat,
-            n_micro=n_micro, mesh=mesh, cfg_override=pcfg)
+            n_micro=n_micro, mesh=mesh, cfg_override=pcfg,
+            collectives=collectives)
         records.append((counts, analyze_cell(cost, meta)))
     out = solve_and_extrapolate(records, layer_counts(cfg))
     tokens = shape.global_batch * (1 if shape.kind == "decode"

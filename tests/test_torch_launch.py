@@ -5,8 +5,9 @@
   equal the reference's for every registered configuration, on
   synthetic probe records.
 * (b) For a reduced configuration of each family, the probes'
-  extrapolation equals the dry-run's direct count at full depth: FLOPs
-  and bytes both exactly (every op's bytes grow linearly with depth).
+  extrapolation equals the dry-run's direct count at full depth: FLOPs,
+  bytes and collective bytes exactly (every op's bytes and every layer's
+  collectives grow linearly with depth).
 * (c) The counted FLOPs of a dense forward equal the analytic sum of
   2·m·n·k over its products; a train step counts 3x the forward with
   remat "none", and with "full" one more forward of the checkpointed
@@ -14,6 +15,14 @@
   checkpoint does not recompute.
 * (d) Per-device argument bytes equal the sum of each leaf's bytes over
   its shard factor, on the (16, 16) and (2, 16, 16) meshes.
+* (g) The collective bytes a device of a train step of qwen3-0.6b's
+  reduced config at widths the rules split (d_model 256, head dim 64,
+  d_ff 256), placed on a (2, 2) mesh over a fake process group in this
+  process, equal a closed form of the layout's collectives: FSDP's
+  gathers and gradient reduce-scatters over the data axis, the
+  row-parallel sums over the model axis (two a layer, attention's again
+  in the recompute), the embedding's and the backward's sums, the label
+  pick's logits and the norms' gradients; a ring model prices each.
 * (e) ``dryrun --sam`` and ``roofline_sweep --sam`` records (the port's
   on the CPU) equal the reference's cell for cell.
 * (f) ``dryrun --sam`` refuses to run without a GPU unless told
@@ -26,6 +35,7 @@ The dry-run cells here use small shapes added to ``SHAPES`` for the
 test; the full-size cells are the CLI's (``--all``) and
 ``chip_smoke.py``'s.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -40,10 +50,11 @@ import torch
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, list_archs
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun, roofline_sweep
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.launch.specs import input_specs
 from repro_torch.models import model as M
 from repro_torch.roofline import probe
+from repro_torch.roofline.analysis import NIC_BW, NVLINK_BW, analyze_cell
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import make_train_step
 
@@ -51,6 +62,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 TINY = {"tiny_train": ShapeConfig("tiny_train", 16, 4, "train"),
         "tiny_decode": ShapeConfig("tiny_decode", 32, 32, "decode")}
+
+
+def _stand_in(sizes):
+    """A (data, model) mesh of ``sizes`` over meta devices."""
+    devs = np.empty(int(np.prod(sizes)), dtype=object)
+    devs[:] = [torch.device("meta")] * devs.size
+    return Mesh(devs.reshape(sizes), ("data", "model"))
 
 
 @pytest.fixture
@@ -85,11 +103,25 @@ def test_probe_pure_parts_equal_the_reference(arch):
     keys = [k for k in want if k.startswith(probe.METRICS)]
     assert len(keys) >= 6
     assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
-    assert got["t_collective"] is None
-    assert got["bottleneck"] in ("compute", "memory")
+    # the collective term's seconds extrapolate as its bytes do (each
+    # collective priced at its group's rate); here a record's seconds are
+    # its bytes at one rate
+    rate = 450e9
+    timed = [(c, dict(r, t_collective=r["collective_bytes_per_device"]
+                      / rate)) for c, r in records]
+    got = probe.solve_and_extrapolate(timed, probe.layer_counts(cfg))
+    assert got["t_collective"] == pytest.approx(
+        want["collective_bytes_per_device"] / rate, rel=1e-12)
+    assert got["bottleneck"] == max(
+        ("compute", "memory", "collective"),
+        key=lambda k: got[f"t_{k}"])
 
 
 # -- (b) the probes' extrapolation equals the direct count --------------------
+
+# cells whose placed step DTensor refuses, and the op it names
+REFUSED = {("xlstm-125m", "tiny_train"): "aten.log_sigmoid_backward.default"}
+
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b",
                                   "xlstm-125m", "zamba2-2.7b"])
@@ -97,12 +129,37 @@ def test_probe_pure_parts_equal_the_reference(arch):
 def test_probe_extrapolation_equals_the_direct_count(arch, shape,
                                                      tiny_shapes):
     cfg = get_config(arch, reduced=True)
-    got = probe.probe_cell(arch, shape, cfg_override=cfg)
-    cost, meta = dryrun.lower_cell(arch, shape, cfg_override=cfg)
+    # placed on a (2, 2) mesh, whose data axis divides the tiny batches;
+    # a placed run costs seconds of DTensor dispatch on the CPU, so the
+    # collectives are held for qwen3-0.6b and xlstm-125m's decode (a
+    # stack of two layer types), and the refused cell's direct count
+    mesh = _stand_in((2, 2))
+    placed = arch == "qwen3-0.6b" or (arch, shape) == ("xlstm-125m",
+                                                       "tiny_decode")
+    refused = (arch, shape) in REFUSED
+    got = probe.probe_cell(arch, shape, cfg_override=cfg, mesh=mesh,
+                           collectives=placed)
+    cost, meta = dryrun.lower_cell(arch, shape, cfg_override=cfg, mesh=mesh,
+                                   collectives=placed or refused)
     n = meta["n_devices"]
     assert got["flops_per_device"] * n == cost["flops"]
     assert got["bytes_per_device"] * n == cost["bytes accessed"]
     assert cost["flops"] > 0 and cost["bytes accessed"] > 0
+    direct = analyze_cell(cost, meta)
+    if refused:
+        # DTensor has no rule for an op of the step: the term is None and
+        # the record names the op
+        assert direct["collective_detail"]["refused"] == REFUSED[arch, shape]
+        assert direct["collective_bytes_per_device"] is None
+        assert direct["t_collective"] is None
+    if not placed:
+        assert got["t_collective"] is None
+        return
+    assert direct["collective_bytes_per_device"] > 0
+    assert got["collective_bytes_per_device"] == pytest.approx(
+        direct["collective_bytes_per_device"], rel=1e-9)
+    assert got["t_collective"] == pytest.approx(direct["t_collective"],
+                                                rel=1e-9)
 
 
 # -- (c) counted FLOPs against the analytic sum --------------------------------
@@ -186,7 +243,7 @@ def test_argument_bytes_are_leaf_bytes_over_the_shard_factor(
     assert mesh.shape == ({"pod": 2, "data": 16, "model": 16} if multi_pod
                           else {"data": 16, "model": 16})
     _, meta = dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
-                                   cfg_override=cfg)
+                                cfg_override=cfg, collectives=False)
     sc = SHAPES[shape]
     specs = input_specs(cfg, sc, AdamWConfig())
     want = 0
@@ -218,6 +275,74 @@ def test_placing_on_the_production_mesh_raises():
     # meta devices and no process group: placement says how to launch
     with pytest.raises(ValueError, match="torch.distributed.run"):
         sharding.place({"w": torch.zeros(2)}, make_production_mesh())
+
+
+# -- (g) the collective term against a closed form ---------------------------
+
+def _closed_form(cfg, b, s, m, d):
+    """{op@axis: (calls, output bytes a device)} of a "dots" train step of
+    a dense config whose projections, embedding and head the rules split
+    over a model axis of ``m`` and FSDP over a data axis of ``d``."""
+    D, F, V, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    hd = cfg.resolved_head_dim
+    Q, K = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    p4, cb = 4, 2                      # float32 parameters, bf16 compute
+    big = [D * Q, Q * D, D * F, D * F, F * D]     # wq wo w_gate w_up w_down
+    kv = [D * K, D * K]                           # wk wv
+    layer = sum(big + kv) * p4 // m    # one layer's leaves after the gather
+    act = b // d * s * D               # one data shard's (B, S, D)
+    return {
+        # FSDP: each layer gathered for the forward and again for its
+        # recompute, the embedding once; the gradients reduce-scattered
+        "all-gather@data": (
+            2 * L * 7 + 1 + 2,
+            2 * L * layer + V * D * p4 // m
+            + b * s * 4 + b * s * 4),   # + the token ids, the token losses
+        "reduce-scatter@data": (L * 7 + 1,
+                                (L * layer + V * D * p4 // m) // d),
+        # the row-parallel sums in float32: two a layer forward, attention's
+        # again in the recompute; the embedding's sum, and the backward's
+        # sums at the column-parallel inputs (two a layer, the head's), in
+        # the compute dtype
+        "all-reduce@model": (
+            3 * L + 1 + 2 * L + 1 + 2,
+            3 * L * act * 4 + (1 + 2 * L + 1) * act * cb
+            + 2 * L * hd * p4),         # + the q and k norms' gradients
+        # the label pick's whole vocabulary rows
+        "all-gather@model": (1, b // d * s * V * 4),
+        # the norm scales' gradients: ln1 and ln2 a layer, ln_f; the q and
+        # k norms (stacked)
+        "all-reduce@data": (2 * L + 1 + 2,
+                            (2 * L + 1) * D * p4 + 2 * L * hd * p4),
+    }
+
+
+def test_collective_bytes_equal_the_closed_form(tiny_shapes):
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
+                              d_model=256, head_dim=64, d_ff=256)
+    shape = TINY["tiny_train"]
+    m = d = 2
+    _, meta = dryrun.lower_cell("qwen3-0.6b", "tiny_train",
+                                cfg_override=cfg, mesh=_stand_in((d, m)))
+    got = meta["collectives"]["by_axis"]
+    # the gradient norm's and the metrics' partial sums: float32 scalars
+    scalars = {k: v for k, v in got.items() if k.startswith("all-reduce")}
+    want = _closed_form(cfg, shape.global_batch, shape.seq_len, m, d)
+    for key, (calls, nbytes) in want.items():
+        row = dict(got[key])
+        if key in scalars:             # take the scalars out
+            n4 = row["calls"] - calls
+            assert 0 < n4 <= 8, (key, row)
+            row["calls"] -= n4
+            row["bytes"] -= 4 * n4
+        assert (row["calls"], row["bytes"]) == (calls, nbytes), key
+    assert got.keys() == want.keys()
+    wire = sum(dryrun.wire_bytes(key.split("@")[0], row["bytes"], 2)
+               for key, row in got.items())
+    assert meta["collectives"]["bytes"] == pytest.approx(wire, rel=1e-12)
+    # four devices of one node: every group at NVLink's rate
+    r = analyze_cell({"flops": 1, "bytes accessed": 1}, meta)
+    assert r["t_collective"] == pytest.approx(wire / NVLINK_BW, rel=1e-12)
 
 
 # -- (e) the --sam records against the reference's -----------------------------
@@ -283,7 +408,14 @@ def test_lm_dryrun_cli_runs_without_gpu(tiny_shapes, capsys):
     assert "of the H100's 80 GB" in out and "bottleneck=" in out
     assert [m["n_devices"] for m in got] == [256, 512]
     assert got[0]["flops"] == got[1]["flops"] > 0
-    assert all(m["roofline"]["t_collective"] is None for m in got)
+    # the collective term, placed on each mesh: the (16, 16) mesh's model
+    # groups span two 8-GPU nodes, so every group moves at the NIC's rate
+    for m in got:
+        r = m["roofline"]
+        assert r["collective_bytes_per_device"] > 0
+        assert r["t_collective"] == pytest.approx(
+            r["collective_bytes_per_device"] / NIC_BW, rel=1e-9)
+        assert f"collective={r['t_collective']:.3e}s" in out
 
 
 # -- the examples ----------------------------------------------------------------

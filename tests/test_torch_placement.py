@@ -16,7 +16,17 @@
     moonshot's MoE dispatch runs in two groups there too) and against the
     reference's sharded step (four forced host devices, a
     ``jax.sharding.Mesh`` with Auto axes, parameters placed by its
-    ``params_shardings``);
+    ``params_shardings``); the same for ``qwen3-0.6b-tp``, qwen3-0.6b's
+    reduced config at widths whose projections the rules split over the
+    model axis (d_model 256, head dim 64, d_ff 256: at the reduced widths
+    every leaf is under the rules' 2^16-element floor and replicated);
+  - that step's collectives (``launch.dryrun.CollectiveCounter``): no
+    all-gather over the model axis but the label pick's logits (so none
+    of a split projection), two all-reduces over the model axis a layer
+    in the forward (attention's and the MLP's row-parallel sums) and the
+    vocab-parallel embedding's one, and every split projection's local
+    shard half its model-axis dim and whole on the other while its layer
+    runs;
   - the grouped MoE dispatch (g = 2, capacity factor 1.0) within 1e-5 of
     the largest value of the reference's grouped dispatch;
   - a checkpoint written on (2, 2) restores on (2, 2), on (4, 1) and on
@@ -39,6 +49,7 @@ subprocesses started together; the one-device figures are computed here
 meanwhile.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -72,7 +83,13 @@ from repro_torch.train.train_step import (remat_loss_fn,  # noqa: E402
                                           value_and_grad)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b")
+ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "qwen3-0.6b-tp")
+# a case beyond the registered reduced configs: (arch, widths replaced)
+WIDE = {"qwen3-0.6b-tp": ("qwen3-0.6b",
+                          dict(d_model=256, head_dim=64, d_ff=256))}
+# the split projections and the tensor dim each splits over the model axis
+SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
+         "w_down": 0}
 B, S = 4, 16
 MOE = dict(d_model=64, d_ff=32, n_experts=8, k=2, tokens=(4, 16))
 F32_LOSS, F32_GRAD, MOE_TOL = 1e-5, 1e-4, 1e-5
@@ -83,6 +100,21 @@ def stand_in(sizes, names=("data", "model")):
     devs = np.empty(int(np.prod(sizes)), dtype=object)
     devs[:] = [torch.device("meta")] * devs.size
     return Mesh(devs.reshape(sizes), names)
+
+
+def cfg_of(name, getter):
+    """The reduced config of case ``name`` from ``getter`` (the port's or
+    the reference's ``get_config``), at its ``WIDE`` widths."""
+    arch, widths = WIDE.get(name, (name, {}))
+    return dataclasses.replace(getter(arch, reduced=True), **widths)
+
+
+def ref_tree(name):
+    """The reference's parameters of case ``name`` as numpy."""
+    if name not in WIDE:
+        return ref_params(name)
+    return jax.tree.map(np.asarray, jax.jit(functools.partial(
+        RM.init_params, cfg_of(name, ref_config)))(jax.random.PRNGKey(0)))
 
 
 # -- (a) placements follow the reference's specs ------------------------------
@@ -130,11 +162,13 @@ inp = dict(np.load(sys.argv[1]))
 mesh = Mesh(np.asarray(jax.devices()).reshape(2, 2), ("data", "model"))
 shd.set_activation_policy(mesh)
 out = {}
+def cfg_of(name):
+    arch, widths = @WIDE@.get(name, (name, {}))
+    return dataclasses.replace(get_config(arch, reduced=True), **widths)
 for arch in @ARCHS@:
-    cfg = dataclasses.replace(get_config(arch, reduced=True),
-                              compute_dtype="float32")
-    params = jax.jit(functools.partial(RM.init_params, get_config(
-        arch, reduced=True)))(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(cfg_of(arch), compute_dtype="float32")
+    params = jax.jit(functools.partial(RM.init_params, cfg_of(arch)))(
+        jax.random.PRNGKey(0))
     params = jax.device_put(params, shd.params_shardings(params, mesh))
     batch = {k: inp[f"{arch}/batch/{k}"] for k in ("tokens", "labels")}
     batch = jax.device_put(batch, shd.batch_shardings(mesh, batch))
@@ -164,6 +198,7 @@ from repro_torch.distributed import elastic, sharding as S
 from repro_torch.distributed.checkpoint import Checkpointer
 from repro_torch.distributed.fault_tolerance import TrainingRunner
 from repro_torch.launch import train
+from repro_torch.launch.dryrun import CollectiveCounter
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M, moe
 from repro_torch.models.common import params_from_numpy
@@ -176,9 +211,12 @@ rank = dist.get_rank()
 mesh22, mesh41 = make_host_mesh(2, device="cpu"), make_host_mesh(1, device="cpu")
 out = {}
 
+def cfg_of(name):
+    arch, widths = @WIDE@.get(name, (name, {}))
+    return dataclasses.replace(get_config(arch, reduced=True), **widths)
+
 def tree_of(arch):
-    cfg = dataclasses.replace(get_config(arch, reduced=True),
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(cfg_of(arch), compute_dtype="float32")
     flat = {k[len(arch) + 7:]: v for k, v in inp.items()
             if k.startswith(arch + "/param/")}
     tree = S.map_with_path(lambda path, _: flat["/".join(map(str, path))],
@@ -193,6 +231,25 @@ S.set_activation_policy(mesh22)
 for arch in @ARCHS@:
     cfg, params, batch = tree_of(arch)
     dp, db = put(mesh22, params, batch)
+    if arch in @WIDE@:
+        # the split layer's collectives and local shards
+        shards, gather = [], M.gathered_over_data
+
+        def watched(tree):
+            out = gather(tree)
+            S.map_with_path(lambda path, t: shards.append((
+                str(path[-1]), tuple(t.shape), tuple(t.to_local().shape)))
+                if path and str(path[-1]) in @SPLIT@ else None, out)
+            return out
+        M.gathered_over_data = watched
+        with CollectiveCounter(mesh22.device_mesh) as fwd:
+            M.loss_fn(cfg, dp, db, remat="dots")
+        with CollectiveCounter(mesh22.device_mesh) as step:
+            loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), dp, db)
+        M.gathered_over_data = gather
+        out[f"{arch}/fwd"] = np.asarray(fwd.records, dtype=object)
+        out[f"{arch}/step"] = np.asarray(step.records, dtype=object)
+        out[f"{arch}/shards"] = np.asarray(shards, dtype=object)
     loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), dp, db)
     out[f"{arch}/loss"] = S.full_tensors(loss).numpy()
     S.map_with_path(lambda path, g: out.__setitem__(
@@ -282,7 +339,8 @@ def _torchrun(args, **kw):
 
 def _subst(script):
     """``script`` with its ``@NAME@`` constants filled in."""
-    for name, v in (("ARCHS", ARCHS), ("D_MODEL", MOE["d_model"]),
+    for name, v in (("ARCHS", ARCHS), ("WIDE", WIDE), ("SPLIT", SPLIT),
+                    ("D_MODEL", MOE["d_model"]),
                     ("D_FF", MOE["d_ff"]), ("N_EXPERTS", MOE["n_experts"]),
                     ("K", MOE["k"]), ("S", S), ("B", B)):
         script = script.replace(f"@{name}@", repr(v))
@@ -296,9 +354,9 @@ def _one_device(inputs):
     sharding.set_activation_policy(stand_in((2, 2)))
     try:
         for arch in ARCHS:
-            cfg = dataclasses.replace(get_config(arch, reduced=True),
+            cfg = dataclasses.replace(cfg_of(arch, get_config),
                                       compute_dtype="float32")
-            params = params_from_numpy(ref_params(arch), device="cpu")
+            params = params_from_numpy(ref_tree(arch), device="cpu")
             batch = {k: torch.tensor(inputs[f"{arch}/batch/{k}"])
                      for k in ("tokens", "labels")}
             loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), params,
@@ -316,9 +374,9 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("placement")
     inputs = {}
     for arch in ARCHS:
-        for k, v in leaves(ref_params(arch)).items():
+        for k, v in leaves(ref_tree(arch)).items():
             inputs[f"{arch}/param{k}"] = v
-        for k, v in make_batch(ref_config(arch, reduced=True), B, S).items():
+        for k, v in make_batch(cfg_of(arch, ref_config), B, S).items():
             inputs[f"{arch}/batch/{k}"] = v
     inputs["moe/x"] = _moe_x()
     for k, v in ref_moe.init_moe(jax.random.PRNGKey(1), MOE["d_model"],
@@ -353,7 +411,8 @@ def runs(tmp_path_factory):
     for name, p in (("ref", ref), ("port", port), ("cli", cli)):
         assert p.returncode == 0, f"{name} failed:\n{logs[name][-6000:]}"
     return {"ref": dict(np.load(tmp / "ref.npz")),
-            "port": dict(np.load(tmp / "port.npz")), "one": one,
+            "port": dict(np.load(tmp / "port.npz", allow_pickle=True)),
+            "one": one,
             "cli": logs["cli"], "plain": plain}
 
 
@@ -369,6 +428,32 @@ def test_sharded_step_equals_one_device_and_the_reference(arch, runs):
         errs = {k: rel(grads[k], want[k]) for k in grads}
         worst = max(errs, key=errs.get)
         assert errs[worst] <= F32_GRAD, (worst, errs[worst])
+
+
+def test_split_layers_issue_the_tensor_parallel_collectives(runs):
+    """qwen3-0.6b-tp on (2, 2): the products split over the model axis
+    (module docstring)."""
+    port, arch = runs["port"], "qwen3-0.6b-tp"
+    cfg = cfg_of(arch, get_config)
+    local = B // 2 * S                   # tokens on one data shard
+    logits = local * cfg.vocab * 4       # the label pick's float32 rows
+    act = local * cfg.d_model * 4        # a float32 (B, S, D) activation
+    for key in ("fwd", "step"):
+        gathers = [r for r in port[f"{arch}/{key}"]
+                   if r[0] == "all-gather" and r[1] == "model"]
+        assert [r[3] for r in gathers] == [logits], key
+    fwd = [r for r in port[f"{arch}/fwd"]
+           if r[0] == "all-reduce" and r[1] == "model"]
+    # two a layer (attention's and the MLP's row-parallel sums) and the
+    # vocab-parallel embedding's
+    assert len(fwd) == 2 * cfg.n_layers + 1
+    assert all(r[3] == act for r in fwd)
+    shards = port[f"{arch}/shards"]
+    assert {r[0] for r in shards} == set(SPLIT)
+    for name, whole, part in shards:
+        d = SPLIT[name]
+        assert part[d] == whole[d] // 2 and part[1 - d] == whole[1 - d], (
+            name, whole, part)
 
 
 def test_grouped_moe_dispatch_equals_the_reference(runs):
