@@ -248,7 +248,26 @@ Phases:
       printed; then one float32 step of moonshot-v1-16b-a3b at 2
       of 48 layers at full width (one dense layer, one MoE layer of 64
       experts, top-6) on (4, 32), the loss within 1e-5 and every gradient
-      leaf within 1e-4 of its largest magnitude against the plain step;
+      leaf within 1e-4 of its largest magnitude against the plain step,
+      and one counted train step of it (AdamW): each card's local shard
+      of the expert stacks while the MoE layer runs must be the rules'
+      (16 of 64 experts on (2, 2): the experts stay on their
+      expert-parallel shards and the tokens move to them), its
+      collectives must equal ``count_collectives`` of the same step and
+      mesh call for call and byte for byte, each card's peak printed;
+      (3) deepseek-v3-671b at 2 of 61 layers at full width (one dense
+      layer with its MLA and d_ff 18,432, one MoE layer of 256 experts,
+      top-8, and its shared expert; 13.9e9 parameters, 56 GB in
+      float32), batch (4, 32): on four cards first its placed step under
+      ``torch.distributed.run`` (``--x3-ranks``, mesh (2, 2), 64 experts
+      a card, each card drawing the whole tree and keeping its shards
+      leaf by leaf), every gradient leaf finite, each card's peak
+      printed; then, the cards released, the plain forward in a process
+      of its own (``--x3-plain``) on the last card, whose loss the
+      placed step's must equal within 1e-5; on fewer cards the plain
+      forward alone (a plain step's gradients do not fit beside its
+      parameters), on a one-card host run right after (a), before this
+      process holds the earlier phases' tensors, and reported in (x);
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -389,6 +408,7 @@ GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 X_BATCH, X_SEQ, X_STEPS = 8, 256, 3    # (x)(2)'s qwen3-0.6b run
 W_LM_JSON = ROOT / "chiprun_out" / "w_lm.json"   # (w)(2) and (3)'s records
 W_LM_PROC = []              # (w)(2) and (3)'s process, while it runs
+X3_PLAIN = []               # (x)(3)'s plain forward, where it ran early
 W_SAM = "X(i,j) = B(i,k) * C(k,j)"
 W_SAM_N = 48
 W_SAM_DENSITY = 0.1
@@ -660,6 +680,14 @@ def main() -> int:
         [sys.executable, str(ROOT / "chip_smoke.py"), "--w-lm",
          str(W_LM_JSON)], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True))
+    if torch.cuda.device_count() == 1:
+        # (x)(3)'s plain forward draws 56 GB (about 65 GiB at its peak):
+        # on one card it runs now, before this process holds the earlier
+        # phases' tensors; (x) reports it
+        t0 = time.perf_counter()
+        X3_PLAIN.append(x3_plain_run())
+        log(f"[a] (x)(3)'s plain forward ran in a process of its own "
+            f"({time.perf_counter() - t0:.1f} s); (x) reports it")
 
     from repro_torch.kernels.scatter_workspace import scatter_workspace
     from repro_torch.kernels.segment_reduce import segment_reduce
@@ -3583,6 +3611,8 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
     shutil.rmtree(x_tmp, ignore_errors=True)
     # the collectives the cards issued against the dry-run's count of the
     # same step on the same mesh (a fake process group, meta tensors)
+    import dataclasses
+
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
@@ -3613,14 +3643,136 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         f"the plain step (1e-5), the largest gradient leaf's error over "
         f"its largest magnitude {x_moon['grad_err']:.3e} (1e-4); "
         f"{x_out['ranks'][1]:.1f} s (with the counted qwen3-0.6b step)")
+    # its counted train step: the experts on their expert-parallel shards,
+    # the collectives equal to the dry-run's count of the same step
+    moon_cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                                   n_layers=2, compute_dtype="float32")
+    x_mesh = tuple(x_moon["mesh"])
+    want_e = rules_local_experts(moon_cfg, x_mesh)
+    bad = [sh for card in x_moon["shards"] for sh in card
+           if sh[2][0] != want_e or sh[2][1:] != sh[1][1:]]
+    if bad or not all(x_moon["shards"]):
+        raise AssertionError(f"(x)(2) moonshot's expert shards {bad or x_moon}"
+                             f" (the rules give {want_e} experts a card)")
+    t0 = time.perf_counter()
+    moon_want = dryrun.count_collectives(
+        moon_cfg, ShapeConfig("x2", 32, 4, "train"), "dots", 1, False,
+        x_mesh, ("data", "model"))
+    moon_got = {k: (v["calls"], v["bytes"])
+                for k, v in x_moon["by_axis"].items()}
+    moon_dry = {k: (v["calls"], v["bytes"])
+                for k, v in moon_want.get("by_axis", {}).items()}
+    log(f"[x] (2) moonshot's counted train step on {x_mesh} (float32, dots, "
+        f"AdamW): the expert stacks' local shards {want_e} of 64 experts "
+        f"on every card while the MoE layer runs (the rules' "
+        f"{x_mesh} split); peak allocated bytes a card {x_moon['peaks']} "
+        f"(allocated before the step {x_moon['before']}); collectives on "
+        f"the cards {json.dumps(moon_got)}, wire bytes a card "
+        f"{x_moon['bytes']}; the dry-run's count {json.dumps(moon_dry)}, "
+        f"wire bytes {moon_want.get('bytes')} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if moon_got != moon_dry or x_moon["bytes"] != moon_want.get("bytes"):
+        raise AssertionError(f"(x)(2) moonshot's collectives on the cards "
+                             f"{moon_got} against the dry-run's {moon_want}")
+    x_deep = phase_x3(n_gpus, x_env, torchrun)
     workloads["lanes and placement (x)"] = {
         "first_ms": (time.perf_counter() - x_start) * 1e3,
         "lanes": x_runs, "qwen3_sharded": x_sharded, "qwen3_plain": x_plain,
         "qwen3_loss_rel_errs": x_errs, "moonshot": x_moon,
         "qwen3_counted": x_tp, "qwen3_dryrun": x_want,
+        "moonshot_dryrun": moon_want, "deepseek": x_deep,
         "cards": n_gpus, "model_parallel": x_mp}
     log(f"[x] phase {time.perf_counter() - x_start:.1f} s")
 
+
+
+def rules_local_experts(cfg, mesh_shape) -> int:
+    """The experts a card holds of each of ``cfg``'s expert stacks on a
+    (data, model) mesh of ``mesh_shape`` by the sharding rules."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    devs = np.empty(int(np.prod(mesh_shape)), dtype=object)
+    devs[:] = [torch.device("meta")] * devs.size
+    mesh = Mesh(devs.reshape(mesh_shape), ("data", "model"))
+    spec = sharding.param_spec(
+        "layers/moe/w_gate", (1, cfg.n_experts, cfg.d_model, cfg.moe_d_ff),
+        mesh)
+    return cfg.n_experts // int(np.prod(
+        [mesh.shape[a] for a in sharding.expert_axes(spec)]))
+
+
+def phase_x3(n_gpus, env, torchrun) -> dict:
+    """(x)(3): deepseek-v3-671b's MoE layer at full width (``x3_config``).
+    On four cards first its placed step under ``torch.distributed.run``
+    (``--x3-ranks``, mesh (2, 2), 64 experts a card), then, with the cards
+    released, the plain forward on the last card from the same seed and
+    batch (the MoE dispatch in as many groups), whose loss the placed one
+    must equal within 1e-5; on fewer cards the plain forward alone (a
+    plain step's gradients would not fit beside its 56 GB of parameters),
+    which on a one-card host ran after (a), while this process held
+    little on the card (``X3_PLAIN``)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    cfg = x3_config()
+    # this process's cached blocks back to the card: the plain forward's
+    # process draws 56 GB beside it, with about 65 GiB at its peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"main_allocated": torch.cuda.memory_allocated(),
+           "main_reserved": torch.cuda.memory_reserved()}
+    if n_gpus >= 4:
+        tmp = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            torchrun + [str(ROOT / "chip_smoke.py"), "--x3-ranks", tmp],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        (ROOT / "chiprun_out" / "x3_ranks.log").write_text(
+            proc.stdout + "\n--- stderr\n" + proc.stderr)
+        if proc.returncode:
+            raise AssertionError(
+                f"(x)(3) ranks exited {proc.returncode} (output in "
+                f"chiprun_out/x3_ranks.log): {proc.stderr[-3000:]}")
+        out.update(json.loads(pathlib.Path(tmp, "deepseek.json").read_text()))
+        shutil.rmtree(tmp, ignore_errors=True)
+        out["ranks_s"] = time.perf_counter() - t0
+    # the plain forward: run early on a one-card host (``main``), else now
+    # on the last card, which this process does not use
+    out.update(X3_PLAIN[0] if X3_PLAIN else x3_plain_run(n_gpus - 1))
+    plain = out["plain_loss"]
+    if not np.isfinite(plain):
+        raise AssertionError(f"(x)(3) plain loss {plain}")
+    log(f"[x] (3) deepseek-v3-671b, 2 of 61 layers at full width (one "
+        f"dense layer with MLA and d_ff 18,432, one MoE layer of 256 "
+        f"experts, top-8, and its shared expert; {out['params']:,} "
+        f"parameters), float32, batch (4, 32): the plain forward on card "
+        f"{out['plain_card']}" + (" (run after (a))" if X3_PLAIN else "")
+        + f", loss {plain:.6f}, {out['plain_forward_ms']:.1f} ms "
+        f"(parameters drawn in {out['plain_built_s']:.1f} s), peak "
+        f"{out['plain_peak']} bytes with {out['live_before']} live before; "
+        f"this process holds {out['main_allocated']} allocated and "
+        f"{out['main_reserved']} reserved bytes on cuda:0 at (x)")
+    if n_gpus < 4:
+        return out
+    err = abs(out["loss"] - plain) / abs(plain)
+    out["loss_err"] = err
+    local = {tuple(sh) for card in out["local"] for sh in card}
+    log(f"[x] (3) deepseek-v3-671b's placed step on {out['mesh']} "
+        f"(experts' local shards {sorted(local)}): loss {out['loss']:.6f}, "
+        f"rel err {err:.3e} against the plain forward (1e-5); every "
+        f"gradient leaf finite {out['finite']}; step {out['seconds']:.2f} s; "
+        f"peak allocated bytes a card {out['peaks']} (allocated before the "
+        f"step {out['before']}); the ranks {out['ranks_s']:.1f} s")
+    want_e = rules_local_experts(cfg, tuple(out["mesh"]))
+    if (err > 1e-5 or not all(out["finite"])
+            or local != {(1, want_e, cfg.d_model, cfg.moe_d_ff),
+                         (1, want_e, cfg.moe_d_ff, cfg.d_model)}):
+        raise AssertionError(f"(x)(3) deepseek {out}")
+    return out
 
 
 def x2_rank(out_dir: str, model_parallel: int) -> int:
@@ -3699,6 +3851,7 @@ def x2_rank(out_dir: str, model_parallel: int) -> int:
     groups = sharding.data_group_size()
     grads = lm.tree_leaves(sharding.full_tensors(grads))
     loss = float(sharding.full_tensors(loss))
+    want = None
     if dist.get_rank() == 0:
         # the plain step, its MoE dispatch grouped as the mesh groups it
         devs = np.empty(mesh.size, dtype=object)
@@ -3711,14 +3864,204 @@ def x2_rank(out_dir: str, model_parallel: int) -> int:
         grad_err = max(float((a - b).abs().max()
                              / max(float(b.abs().max()), 1e-30))
                        for a, b in zip(grads, want))
-        (out_dir / "moonshot.json").write_text(json.dumps({
-            "loss": loss, "loss_err": abs(loss - float(want_loss))
-            / abs(float(want_loss)), "grad_err": grad_err,
-            "groups": groups, "leaves": len(want)}))
+        moon = {"loss": loss, "loss_err": abs(loss - float(want_loss))
+                / abs(float(want_loss)), "grad_err": grad_err,
+                "groups": groups, "leaves": len(want)}
+        sharding.set_activation_policy(mesh)
+    del grads, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the counted moonshot train step (AdamW, as the dry-run counts it):
+    # its collectives, the expert stacks' local shards while the MoE layer
+    # runs, each card's peak
+    params = sharding.place(params, mesh)
+    state = init_opt_state(opt, params)
+    batch = sharding.place(batch, mesh, sharding.batch_shardings(mesh, batch))
+    shards, gather = [], lm.gathered_but_experts
+
+    def watched(tree):
+        out = gather(tree)
+        shards.extend((n, list(out[n].shape), list(out[n].to_local().shape))
+                      for n in ("w_gate", "w_up", "w_down"))
+        return out
+    lm.gathered_but_experts = watched
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counter = CollectiveCounter(mesh.device_mesh)
+    try:
+        with counter:
+            make_train_step(cfg, opt, remat="dots")(params, state, batch)
+        torch.cuda.synchronize()
+    finally:
+        lm.gathered_but_experts = gather
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, (torch.cuda.max_memory_allocated(), before,
+                                   shards))
+    if dist.get_rank() == 0:
+        summary = counter.summary()
+        (out_dir / "moonshot.json").write_text(json.dumps(dict(
+            moon, mesh=list(mesh.devices.shape), peaks=[p[0] for p in peaks],
+            before=[p[1] for p in peaks], shards=[p[2] for p in peaks],
+            bytes=summary["bytes"], by_axis=summary["by_axis"])))
     sharding.set_activation_policy(None)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def x3_rank(out_dir: str) -> int:
+    """(x)(3)'s placed deepseek-v3-671b step as one process of
+    ``torch.distributed.run`` on four cards: 2 of its 61 layers at full
+    width (``X3_CFG``), float32, its parameters drawn on each card from
+    the seed of the plain forward and placed leaf by leaf (each card
+    slicing its shards from its own draws, each whole leaf freed once
+    placed: the whole tree, 56 GB, and its shards would not fit beside
+    each other), the loss and the gradients of one step on a (4, 32)
+    batch (remat "dots"). Process 0 writes ``deepseek.json``: the loss,
+    whether every gradient leaf is finite, the expert stacks' local
+    shards, each card's peak allocated bytes over the step and the step's
+    seconds."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.train.train_step import remat_loss_fn, value_and_grad
+
+    train.start_process_group()
+    mesh = make_host_mesh(2)
+    sharding.set_activation_policy(mesh)
+    cfg = x3_config()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    specs = sharding.params_shardings(params, mesh)
+
+    def place_freeing(tree, spec):
+        for key in (tree if isinstance(tree, dict) else range(len(tree))):
+            if isinstance(tree[key], (dict, list)):
+                place_freeing(tree[key], spec[key])
+                continue
+            d = distribute_tensor(tree[key], mesh.device_mesh,
+                                  sharding.spec_placements(spec[key], mesh),
+                                  src_data_rank=None)
+            # a copy of the local shard, so the whole leaf's storage goes
+            tree[key] = DTensor.from_local(
+                d.to_local().clone(), mesh.device_mesh, d.placements,
+                run_check=False, shape=d.shape, stride=d.stride())
+            del d
+    place_freeing(params, specs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = batch_for_step(cfg, ShapeConfig("x3", 32, 4, "train"), 0)
+    batch = sharding.place(batch, mesh, sharding.batch_shardings(mesh, batch))
+    local = [list(params["layers"]["moe"][n].to_local().shape)
+             for n in ("w_gate", "w_up", "w_down")]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(g.to_local()).all())
+                 for g in lm.tree_leaves(grads))
+    loss = float(sharding.full_tensors(loss))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (peak, before, finite, local))
+    if dist.get_rank() == 0:
+        (pathlib.Path(out_dir) / "deepseek.json").write_text(json.dumps({
+            "mesh": list(mesh.devices.shape), "loss": loss,
+            "finite": [g[2] for g in got], "local": [g[3] for g in got],
+            "peaks": [g[0] for g in got], "before": [g[1] for g in got],
+            "leaves": len(lm.tree_leaves(grads)), "seconds": seconds}))
+    sharding.set_activation_policy(None)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def x3_plain_run(card=None) -> dict:
+    """(x)(3)'s plain forward in a process of its own (``--x3-plain``), on
+    ``card`` where given (``CUDA_VISIBLE_DEVICES``), else on ``cuda:0``;
+    returns its record."""
+    import os
+    import tempfile
+
+    env = dict(os.environ)
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = str(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp, "plain.json")
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--x3-plain",
+             str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"(x)(3) plain forward exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        return dict(json.loads(path.read_text()), plain_card=card or 0)
+
+
+def x3_plain(out_path: str) -> int:
+    """(x)(3)'s plain forward on one card (``x3_config``, a (4, 32) batch,
+    the MoE dispatch in the groups of a (2, 2) mesh), the parameters drawn
+    from the placed step's seed: writes its loss, ms, parameter count,
+    seconds to draw them and peak allocated bytes to ``out_path``."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as lm
+
+    cfg = x3_config()
+    live = torch.cuda.memory_allocated()
+    devs = np.empty(4, dtype=object)
+    devs[:] = [torch.device("cuda", 0)] * 4
+    sharding.set_activation_policy(Mesh(devs.reshape(2, 2),
+                                        ("data", "model")))
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = batch_for_step(cfg, ShapeConfig("x3", 32, 4, "train"), 0)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(lm.loss_fn(cfg, params, batch))
+    torch.cuda.synchronize()
+    pathlib.Path(out_path).write_text(json.dumps({
+        "plain_loss": loss,
+        "plain_forward_ms": (time.perf_counter() - t0) * 1e3,
+        "params": sum(t.numel() for t in lm.tree_leaves(params)),
+        "plain_built_s": built_s,
+        "plain_peak": torch.cuda.max_memory_allocated(),
+        "live_before": live}))
+    return 0
+
+
+def x3_config():
+    """(x)(3)'s deepseek-v3-671b: 2 of 61 layers at full width (one dense
+    layer with its MLA and d_ff 18,432, one MoE layer of 256 experts,
+    top-8, and its shared expert), float32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=2,
+                               first_dense_layers=1, compute_dtype="float32")
 
 
 def phase_x_alone() -> int:
@@ -3815,6 +4158,10 @@ if __name__ == "__main__":
         sys.exit(w_lm_counts(sys.argv[2]))
     if sys.argv[1:2] == ["--x2-ranks"]:
         sys.exit(x2_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--x3-ranks"]:
+        sys.exit(x3_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--x3-plain"]:
+        sys.exit(x3_plain(sys.argv[2]))
     if sys.argv[1:] == ["--phase-x"]:
         sys.exit(phase_x_alone())
     try:

@@ -30,16 +30,21 @@ each mesh axis ``Shard(d)`` where the axis names tensor dim ``d``,
 carries a process group, one of size 1 included, and moves plain tensors
 on a mesh of one device without one. The model gathers placed
 parameters where it uses them, a layer at a time. The transformer
-layers' projections and the head and embedding are gathered over the
-data group only (``gathered_over_data``, FSDP's all-gather): each keeps
-its ``Shard`` on the ``model`` axis, so the products are split as the
-reference's XLA partitions them (column-parallel ``wq``/``wk``/``wv``,
+layers' projections (MLA's included) and the head and embedding are
+gathered over the data group only (``gathered_over_data``, FSDP's
+all-gather): each keeps its ``Shard`` on the ``model`` axis, so the
+products are split as the reference's XLA partitions them
+(column-parallel ``wq``/``wk``/``wv``, MLA's ``wq_b``/``wkv_b``,
 ``w_gate``/``w_up`` and head, row-parallel ``wo`` and ``w_down``, a
 vocab-parallel embedding), and activations are sharded over the batch
 and, between a column- and a row-parallel product, over the model axis.
-Every other stack (MLA, mamba2, xlstm, zamba2's shared block, the MoE
-router and experts) is gathered whole (``gathered``, as ZeRO-3 does);
-the MoE expert FFN still runs sharded over the experts. The activation
+A MoE block is gathered by ``gathered_but_experts``: its expert stacks
+not at all, so each card keeps the experts of its ``Shard`` on the E
+axes (``expert_axes``: model, and the data axes where E divides them)
+and the dispatch moves the tokens to them, its router and shared
+experts over the data group only. Every other stack (mamba2, xlstm,
+zamba2's shared block) is gathered whole (``gathered``, as ZeRO-3
+does). The activation
 policy (``set_activation_policy``, ``data_group_size``,
 ``shard_activation``) is the reference's: ``shard_activation``
 redistributes a DTensor to its fitted spec's placements, and is the
@@ -63,7 +68,8 @@ from ..launch.mesh import Mesh
 __all__ = ["data_axes", "path_str", "param_spec", "params_shardings",
            "batch_spec", "batch_shardings", "cache_spec", "cache_shardings",
            "map_with_path", "spec_placements", "place", "gathered",
-           "gathered_over_data", "model_sharded", "model_coordinate",
+           "gathered_over_data", "gathered_but_experts", "expert_axes",
+           "model_sharded", "model_coordinate",
            "whole_over_model", "reduced", "model_input", "over_model",
            "full_tensors",
            "spmd_region", "set_activation_policy", "data_group_size",
@@ -331,6 +337,32 @@ def gathered_over_data(tree):
     plain leaves as they are."""
     return map_with_path(lambda _, t: _replicated_on(t, ("pod", "data")),
                          tree)
+
+
+def expert_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes that split the E axis of an expert stack (``(E, D,
+    F)``, or ``(L, E, D, F)`` stacked) whose spec is ``spec``, in the
+    spec's order; () where the experts are whole. The rules' one answer
+    for the experts' placements and the dispatch buffers' alike."""
+    e = spec[-3] if len(spec) >= 3 else None
+    return () if e is None else (e if isinstance(e, tuple) else (e,))
+
+
+def _expert_stack(path, t) -> bool:
+    """Whether the leaf at ``path`` of a MoE block is a stack of routed
+    experts (not a shared expert's matrix)."""
+    return (bool(path) and str(path[-1]) in _EXPERT and t.ndim == 3
+            and "shared" not in map(str, path))
+
+
+def gathered_but_experts(tree):
+    """A MoE block's placed parameters where they are used: its expert
+    stacks as they are (each card keeps its ``Shard`` of the experts on
+    every mesh axis, the data axes' included: the dispatch moves the
+    tokens to them), every other leaf (the router, the shared experts)
+    gathered over the data group only (``gathered_over_data``)."""
+    return map_with_path(lambda path, t: t if _expert_stack(path, t)
+                         else _replicated_on(t, ("pod", "data")), tree)
 
 
 def whole_over_model(t):

@@ -267,8 +267,9 @@ def count_collectives(cfg: ModelConfig, shape: ShapeConfig, remat: str,
     ranks in this process (its collectives move nothing), the activation
     policy on, under ``CollectiveCounter``. The ``DeviceMesh`` is a CUDA
     one (no device is touched) where torch is built for CUDA; a CPU-only
-    build takes a CPU mesh, on which DTensor turns an all-to-all into an
-    all-gather and a local chunk (the MoE dispatch's, counted as that).
+    build takes a CPU mesh, on which DTensor turns its own all-to-alls
+    into an all-gather and a local chunk (the MoE dispatch issues its
+    all-to-all itself, counted as one on both).
     Returns the summary with the seconds at each group's link rate
     (``"time_s"``, ``"by_axis_s"``), or ``{"refused": op, "error":
     message}`` where the placed step fails."""

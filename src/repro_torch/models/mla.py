@@ -10,15 +10,20 @@ A port of ``repro.models.mla``, with the reference's float32 scores
 (operands cast to float32 before the score einsums), its finite
 ``NEG_INF``, and a cache write past ``max_seq`` refused with
 ``ValueError`` (``attention.check_cache_room``) where the reference's
-scatter would drop it.
+scatter would drop it. Placed over a mesh, the layer is
+tensor-parallel on whole heads (``mla_attention``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from ..core import coord_ops as co
+from ..distributed import sharding as shd
 from .attention import NEG_INF, _write_tokens, check_cache_room
 from .common import (apply_rope, dense_init, device_of, init_rms, rms_norm,
                      rope_angles)
@@ -50,15 +55,36 @@ def mla_attention(p: dict, x: torch.Tensor, *, n_heads: int,
                   rope_theta: float = 10000.0, compute_dtype=torch.bfloat16,
                   cache: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
-    b, s, _ = x.shape
+    """x: (B, S, D). With ``cache`` given, S is the new-token count and
+    attention runs against the cached latents and the new ones.
+
+    Placed with ``wq_b`` and ``wkv_b`` split over the model axis on whole
+    heads and ``wo`` on its input rows (``distributed.sharding``), the
+    layer is tensor-parallel as ``attention.attention`` is. ``wq_a`` and
+    ``wkv_a`` are made whole over the model axis: their latents are
+    normalized over the whole row and read by every head, and the weights
+    are smaller than the latents' activations. The column-parallel
+    ``wq_b`` and ``wkv_b`` give each shard its own heads, the scores and
+    values run on them per shard through ``local_map`` (the shared RoPE
+    key, read by every shard's heads, gets a ``Partial`` gradient), and
+    the row-parallel ``wo`` leaves a float32 ``Partial`` sum over the
+    model axis for the caller to reduce. A placed cache is made whole over
+    the model axis for the step (an all-gather of its sequence shards),
+    each card writes its own rows, and the cache goes back on its own
+    placements (a local slice). Where the model axis does not divide the
+    heads, or the three are not split, the layer's weights are made whole
+    over it first."""
+    s = x.shape[1]
     cd = compute_dtype
     x = x.to(cd)
-    qk_head = qk_nope_dim + rope_dim
+    split = (shd.model_sharded(p["wq_b"], 1)
+             and shd.model_sharded(p["wkv_b"], 1)
+             and shd.model_sharded(p["wo"], 0)
+             and n_heads % shd.model_coordinate(p["wq_b"])[1] == 0)
+    p = {k: v if split and k in _HEAD_SPLIT else shd.whole_over_model(v)
+         for k, v in p.items()}
 
-    q = rms_norm(x @ p["wq_a"].to(cd), p["q_a_norm"])
-    q = (q @ p["wq_b"].to(cd)).reshape(b, s, n_heads, qk_head)
-    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
-
+    q_lat = rms_norm(x @ p["wq_a"].to(cd), p["q_a_norm"])
     kv = x @ p["wkv_a"].to(cd)
     c_kv, k_rope = kv[..., :kv_lora_rank], kv[..., kv_lora_rank:]
     c_kv = rms_norm(c_kv, p["kv_a_norm"])
@@ -66,33 +92,99 @@ def mla_attention(p: dict, x: torch.Tensor, *, n_heads: int,
 
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
     if cache is None:
-        q_pos = steps[None, :]
+        pos, q_pos = None, steps[None, :]
         new_cache = None
     else:
         pos = cache["pos"]
         check_cache_room(pos, s, cache["c_kv"].shape[1])
         q_pos = pos[:, None] + steps[None, :]
-        kv_len = cache["c_kv"].shape[1]
 
     cos, sin = rope_angles(q_pos, rope_dim, rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope, cos, sin)
 
     if cache is not None:
-        c_kv_all = _write_tokens(cache["c_kv"], c_kv, pos)
-        k_rope_all = _write_tokens(cache["k_rope"], k_rope[..., 0, :], pos)
-        new_cache = {"c_kv": c_kv_all, "k_rope": k_rope_all, "pos": pos + s}
+        c_kv_all = _write(cache["c_kv"], c_kv, pos)
+        k_rope_all = _write(cache["k_rope"], k_rope[..., 0, :], pos)
+        new_cache = {"c_kv": _placed_as(c_kv_all, cache["c_kv"]),
+                     "k_rope": _placed_as(k_rope_all, cache["k_rope"]),
+                     "pos": pos + s}
         c_kv = c_kv_all.to(cd)
         k_rope = k_rope_all.to(cd)[..., None, :]
-        k_pos = torch.arange(kv_len, dtype=torch.int32,
-                             device=x.device)[None, :]
-    else:
-        k_pos = q_pos
 
-    # expand latent to per-head keys/values
-    kv_b = (c_kv @ p["wkv_b"].to(cd)).reshape(
-        b, -1, n_heads, qk_nope_dim + v_head_dim)
+    if split:
+        # Megatron's f: the column-parallel products' input gradients are
+        # partial sums over the model axis, reduced here
+        q_lat, c_kv = shd.model_input(q_lat), shd.model_input(c_kv)
+        k_rope = shd.model_input(k_rope)
+    q = q_lat @ p["wq_b"].to(cd)                 # (B, S, heads x qk_head)
+    kv_b = c_kv @ p["wkv_b"].to(cd)      # (B, S_kv, heads x (nope + v))
+    core = functools.partial(
+        _core, qk_nope_dim=qk_nope_dim, v_head_dim=v_head_dim,
+        rope_dim=rope_dim, rope_theta=rope_theta, cd=cd, steps=steps)
+    if not split:
+        out = core(q, kv_b, k_rope, pos)
+        return out @ p["wo"].to(cd), new_cache
+    args = [q, kv_b, k_rope] + ([] if pos is None else [pos])
+    in_pl = tuple(tuple(t.placements) for t in args)
+    grad_pl = (in_pl[0], in_pl[1], tuple(shd.over_model(k_rope, Partial())),
+               *in_pl[3:])
+    out = local_map(core, out_placements=(in_pl[0],), in_placements=in_pl,
+                    in_grad_placements=grad_pl,
+                    device_mesh=q.device_mesh)(*args)
+    # row-parallel: each shard's partial product in float32, so their sum
+    # rounds to the compute dtype once, as one device's product
+    return out.float() @ p["wo"].to(cd).float(), new_cache
+
+
+# the projections split over the model axis on whole heads
+_HEAD_SPLIT = ("wq_b", "wkv_b", "wo")
+
+
+def _write(arr, new, pos):
+    """``arr`` with ``new`` (B, s, ...) written at the rows' positions
+    ``pos`` (``attention._write_tokens``). On DTensors each card writes its
+    own rows of the cache made whole on its other dims (an all-gather of
+    the sequence shards over the model axis)."""
+    if not isinstance(arr, DTensor):
+        return _write_tokens(arr, new, pos)
+    mesh = arr.device_mesh
+    rows = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                 for p in arr.placements)
+    return local_map(_write_tokens, out_placements=(rows,),
+                     in_placements=(rows,) * 3, device_mesh=mesh)(
+        *(t.redistribute(mesh, rows) for t in (arr, new, pos)))
+
+
+def _placed_as(t, like):
+    """``t`` on DTensor ``like``'s placements (a slice of a replicated
+    dim: no collective); a plain ``t`` as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(like.device_mesh, like.placements)
+
+
+def _core(q, kv_b, k_rope, pos=None, *, qk_nope_dim: int, v_head_dim: int,
+          rope_dim: int, rope_theta: float, cd, steps):
+    """The scores and values from the head projections' outputs: ``q``
+    (B, S, heads x qk_head), ``kv_b`` (B, S_kv, heads x (nope + v)), the
+    rotated shared key ``k_rope`` (B, S_kv, 1, rope) and, with a cache,
+    the rows' positions before the step ``pos`` (B,); returns the input
+    of ``wo`` (B, S, heads x v). On a model shard the heads are its own."""
+    b, s = q.shape[:2]
+    qk_head = qk_nope_dim + rope_dim
+    heads = q.shape[-1] // qk_head
+    q = q.reshape(b, s, heads, qk_head)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    kv_b = kv_b.reshape(b, -1, heads, qk_nope_dim + v_head_dim)
     k_nope, v = kv_b[..., :qk_nope_dim], kv_b[..., qk_nope_dim:]
+    if pos is None:
+        q_pos = k_pos = steps[None, :]
+    else:
+        q_pos = pos[:, None] + steps[None, :]
+        k_pos = torch.arange(kv_b.shape[1], dtype=torch.int32,
+                             device=q.device)[None, :]
+    cos, sin = rope_angles(q_pos, rope_dim, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
 
     scale = 1.0 / (qk_head ** 0.5)
     # float32 scores, as the reference's preferred_element_type=float32;
@@ -101,13 +193,12 @@ def mla_attention(p: dict, x: torch.Tensor, *, n_heads: int,
               + torch.einsum("bqhd,bsxd->bhqs", q_rope.float(),
                              k_rope.float())) * scale
     mask = q_pos[:, :, None] >= k_pos[:, None, :]
-    if cache is not None:
+    if pos is not None:
         mask = mask & (k_pos[:, None, :] < (pos + s)[:, None, None])
     scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(cd)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v)
-    out = out.reshape(b, -1, n_heads * v_head_dim)
-    return out @ p["wo"].to(cd), new_cache
+    return out.reshape(b, -1, heads * v_head_dim)
 
 
 def init_mla_cache(batch: int, max_seq: int, kv_lora_rank: int = 512,

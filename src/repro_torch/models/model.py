@@ -35,11 +35,14 @@ the embeddings, on each layer's output and on the logits
 parameters placed over a process group's mesh and changes nothing
 without a policy or on plain tensors. Placed parameters are gathered
 where they are used (each stack a layer at a time, inside the layer's
-checkpoint under remat): a transformer layer's attention (not MLA's)
+checkpoint under remat): a transformer layer's attention (MLA's too)
 and MLP, the embedding and the head over the data group only, so their
 products are split over the model axis by the reference's sharding
 rules (``distributed.sharding``; a row-parallel product's partial sum
-is reduced before the residual add), everything else whole, so its
+is reduced before the residual add); a MoE block's experts not at all
+(each card keeps its expert-parallel shard and the dispatch moves the
+tokens to it, ``models.moe``), its router and shared experts over the
+data group; mamba2, xlstm and zamba2's shared block whole, so their
 activations are sharded over the batch only. ``forward`` runs inside
 ``spmd_region``, so the plain tensors it builds meet DTensors as
 replicated ones. Token ids outside the vocabulary raise ``ValueError``
@@ -61,7 +64,8 @@ from torch.distributed.tensor import Partial
 from torch.distributed.tensor.experimental import local_map
 
 from ..distributed import sharding as shd
-from ..distributed.sharding import (gathered, gathered_over_data, reduced,
+from ..distributed.sharding import (gathered, gathered_but_experts,
+                                    gathered_over_data, reduced,
                                     shard_activation, spmd_region)
 from .attention import attention, init_attention, init_kv_cache
 from .common import (apply_mlp, cross_entropy, dense_init, device_of,
@@ -167,7 +171,11 @@ def _stack_len(stack) -> int:
 
 def _stacked(init_fn, gen, n: int):
     """``n`` layers from ``init_fn``, stacked on a leading layer axis; for
-    ``n == 0`` the empty stack of one layer's shapes."""
+    ``n == 0`` the empty stack of one layer's shapes. One layer is its
+    tensors with the axis added, not copied (a copy would hold a layer
+    twice: deepseek-v3-671b's MoE layer alone is 45 GB in float32)."""
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), init_fn(gen))
     if n:
         return tree_stack([init_fn(gen) for _ in range(n)])
     dev = device_of(gen)
@@ -285,16 +293,15 @@ def _tf_layer(cfg: ModelConfig, p, x, moe: bool, cache=None, prefix_len=None):
     return x + reduced(m).to(x.dtype), new_cache
 
 
-def _tf_gather(cfg: ModelConfig) -> Callable:
-    """The gather of a transformer layer's placed parameters: attention
-    (but MLA) and the MLP over the data group only, so their products
-    split over the model axis; the norms and the MoE block whole."""
-    split = ("mlp",) if cfg.use_mla else ("attn", "mlp")
-
-    def gather(lp):
-        return {k: gathered_over_data(v) if k in split else gathered(v)
-                for k, v in lp.items()}
-    return gather
+def _tf_gather(lp):
+    """A transformer layer's placed parameters where it runs: attention
+    (MLA's too) and the MLP gathered over the data group only, so their
+    products split over the model axis; the MoE block by
+    ``sharding.gathered_but_experts`` (the experts not at all, the router
+    and the shared experts over the data group); the norms whole."""
+    return {k: gathered_but_experts(v) if k == "moe" else
+            gathered_over_data(v) if k in ("attn", "mlp") else
+            gathered(v) for k, v in lp.items()}
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -454,7 +461,7 @@ def _forward(cfg: ModelConfig, params, batch, caches, remat):
             return _tf_layer(cfg, lp, h, False, c, prefix_len)
         x, nc = _scan_stack(params["layers"], x, fn,
                             caches["layers"] if caches else None, remat,
-                            _tf_gather(cfg))
+                            _tf_gather)
         new_caches["layers"] = nc
     elif cfg.family == "moe":
         if "dense_layers" in params:
@@ -462,14 +469,14 @@ def _forward(cfg: ModelConfig, params, batch, caches, remat):
                 return _tf_layer(cfg, lp, h, False, c)
             x, nc = _scan_stack(params["dense_layers"], x, fn,
                                 caches["dense_layers"] if caches else None,
-                                remat, _tf_gather(cfg))
+                                remat, _tf_gather)
             new_caches["dense_layers"] = nc
 
         def fn_moe(lp, h, c):
             return _tf_layer(cfg, lp, h, True, c)
         x, nc = _scan_stack(params["layers"], x, fn_moe,
                             caches["layers"] if caches else None, remat,
-                            _tf_gather(cfg))
+                            _tf_gather)
         new_caches["layers"] = nc
     elif cfg.family == "ssm":
         x, new_caches = _ssm_forward(cfg, params, x, caches)

@@ -19,7 +19,16 @@
     ``params_shardings``); the same for ``qwen3-0.6b-tp``, qwen3-0.6b's
     reduced config at widths whose projections the rules split over the
     model axis (d_model 256, head dim 64, d_ff 256: at the reduced widths
-    every leaf is under the rules' 2^16-element floor and replicated);
+    every leaf is under the rules' 2^16-element floor and replicated),
+    and for ``moonshot-v1-16b-a3b-ep`` and ``deepseek-v3-671b-tp``, one
+    dense and one MoE layer at widths where the router, the expert and
+    shared-expert stacks and (deepseek) every MLA projection split;
+  - the MoE cases' experts on their expert-parallel shards: E/4 a card
+    while the layer runs, no expert stack gathered (nor its gradient
+    reduce-scattered) on any axis, the tokens moved by all-to-alls over
+    the data axis; MLA's ``wq_b``/``wkv_b``/``wo`` shards half their
+    model-axis dim; a placed float32 MLA prefill and two decode steps
+    within 1e-5 of the plain ones;
   - that step's collectives (``launch.dryrun.CollectiveCounter``): no
     all-gather over the model axis but the label pick's logits (so none
     of a split projection), two all-reduces over the model axis a layer
@@ -28,7 +37,8 @@
     shard half its model-axis dim and whole on the other while its layer
     runs;
   - the grouped MoE dispatch (g = 2, capacity factor 1.0) within 1e-5 of
-    the largest value of the reference's grouped dispatch;
+    the largest value of the reference's grouped dispatch, and the dense
+    dispatch on placed parameters within 1e-5 of its plain result;
   - a checkpoint written on (2, 2) restores on (2, 2), on (4, 1) and on
     one device with every leaf equal, and the loss of the resumed step
     replays the uninterrupted run's bit for bit on each (the token
@@ -43,6 +53,9 @@
   process rounds the whole sum once, and Adam's first step turns a
   gradient near zero that takes the other sign into a move of 2·lr
   (5.6e-5 measured on the CPU).
+* (d) On (2, 16, 16) and (16, 16), for E = 64 and 256, the placed
+  dispatch's buffers split E over the axes the rules give the expert
+  stacks (``sharding.expert_axes``). A pure mapping, no processes.
 
 The reference's figures, (b)'s processes and (c)'s run are three
 subprocesses started together; the one-device figures are computed here
@@ -83,13 +96,28 @@ from repro_torch.train.train_step import (remat_loss_fn,  # noqa: E402
                                           value_and_grad)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "qwen3-0.6b-tp")
-# a case beyond the registered reduced configs: (arch, widths replaced)
+ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "qwen3-0.6b-tp",
+         "moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp")
+# cases beyond the registered reduced configs: (arch, widths replaced).
+# At the MoE cases' widths the router, the expert stacks, the shared
+# experts and (deepseek) every MLA projection reach the rules' 2^16
+# elements, E divides the (2, 2) mesh's four cards and the heads its
+# model axis; one dense layer and one MoE layer each
 WIDE = {"qwen3-0.6b-tp": ("qwen3-0.6b",
-                          dict(d_model=256, head_dim=64, d_ff=256))}
+                          dict(d_model=256, head_dim=64, d_ff=256)),
+        "moonshot-v1-16b-a3b-ep": ("moonshot-v1-16b-a3b", dict(
+            n_layers=2, d_model=512, head_dim=32, n_experts=128,
+            moe_d_ff=64)),
+        "deepseek-v3-671b-tp": ("deepseek-v3-671b", dict(
+            n_layers=2, d_model=1024, n_heads=8, n_kv_heads=8, d_ff=64,
+            n_experts=64, moe_d_ff=64, q_lora_rank=64, kv_lora_rank=64,
+            qk_nope_dim=96, rope_dim=32, v_head_dim=32))}
+EP = ("moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp")
 # the split projections and the tensor dim each splits over the model axis
 SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
          "w_down": 0}
+# MLA's projections split on whole heads
+SPLIT_MLA = {"wq_b": 1, "wkv_b": 1, "wo": 0}
 B, S = 4, 16
 MOE = dict(d_model=64, d_ff=32, n_experts=8, k=2, tokens=(4, 16))
 F32_LOSS, F32_GRAD, MOE_TOL = 1e-5, 1e-4, 1e-5
@@ -199,7 +227,7 @@ from repro_torch.distributed.checkpoint import Checkpointer
 from repro_torch.distributed.fault_tolerance import TrainingRunner
 from repro_torch.launch import train
 from repro_torch.launch.dryrun import CollectiveCounter
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models import model as M, moe
 from repro_torch.models.common import params_from_numpy
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -232,25 +260,31 @@ for arch in @ARCHS@:
     cfg, params, batch = tree_of(arch)
     dp, db = put(mesh22, params, batch)
     if arch in @WIDE@:
-        # the split layer's collectives and local shards
-        shards, gather = [], M.gathered_over_data
+        # the split layer's collectives and local shards (the projections'
+        # where a layer gathers them, the MoE blocks' as they run)
+        shards, gather, gather_moe = [], M.gathered_over_data, M.gathered_but_experts
 
-        def watched(tree):
-            out = gather(tree)
-            S.map_with_path(lambda path, t: shards.append((
-                str(path[-1]), tuple(t.shape), tuple(t.to_local().shape)))
-                if path and str(path[-1]) in @SPLIT@ else None, out)
-            return out
-        M.gathered_over_data = watched
+        def watch(tag, fn):
+            def watched(tree):
+                res = fn(tree)
+                S.map_with_path(lambda path, t: shards.append((
+                    tag + str(path[-1]), tuple(t.shape),
+                    tuple(t.to_local().shape))) if path and str(path[-1])
+                    in @WATCH@ else None, res)
+                return res
+            return watched
+        M.gathered_over_data = watch("", gather)
+        M.gathered_but_experts = watch("moe/", gather_moe)
         with CollectiveCounter(mesh22.device_mesh) as fwd:
             M.loss_fn(cfg, dp, db, remat="dots")
         with CollectiveCounter(mesh22.device_mesh) as step:
             loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), dp, db)
-        M.gathered_over_data = gather
+        M.gathered_over_data, M.gathered_but_experts = gather, gather_moe
         out[f"{arch}/fwd"] = np.asarray(fwd.records, dtype=object)
         out[f"{arch}/step"] = np.asarray(step.records, dtype=object)
         out[f"{arch}/shards"] = np.asarray(shards, dtype=object)
-    loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), dp, db)
+    else:
+        loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), dp, db)
     out[f"{arch}/loss"] = S.full_tensors(loss).numpy()
     S.map_with_path(lambda path, g: out.__setitem__(
         f"{arch}/grad/" + "/".join(map(str, path)),
@@ -265,6 +299,39 @@ y = moe.moe_sam_dispatch(S.place(p, mesh22), dx, k=@K@, capacity_factor=1.0,
                          compute_dtype=torch.float32)
 out["moe/y"] = y.full_tensor().numpy()
 out["moe/group_size"] = np.asarray(S.data_group_size())
+# the dense dispatch, the baseline, on placed parameters (gathered whole)
+out["moe/dense"] = moe.moe_dense_dispatch(
+    S.place(p, mesh22), dx, k=@K@, compute_dtype=torch.float32).full_tensor().numpy()
+
+# a placed MLA prefill and two decode steps against the plain ones on one
+# device (the same MoE groups: the policy of a (2, 2) mesh)
+cfg, params, _ = tree_of("deepseek-v3-671b-tp")
+toks = torch.tensor(np.random.default_rng(3).integers(0, cfg.vocab, (@B@, 10)))
+
+def serve(placed):
+    caches = M.init_caches(cfg, @B@, 16, dtype=torch.float32, device="cpu")
+    ps = params
+    if placed:
+        ps = S.place(params, mesh22)
+        caches = S.place(caches, mesh22, S.cache_shardings(mesh22, caches))
+    logits = []
+    for lo, hi in ((0, 8), (8, 9), (9, 10)):
+        b = {"tokens": toks[:, lo:hi]}
+        if placed:
+            b = S.place(b, mesh22, S.batch_shardings(mesh22, b))
+        lg, caches = M.forward(cfg, ps, b, caches)
+        logits.append(S.full_tensors(lg).numpy())
+    return logits
+
+for i, lg in enumerate(serve(True)):
+    out[f"mla/placed/{i}"] = lg
+if rank == 0:
+    devs = np.empty(4, dtype=object)
+    devs[:] = [torch.device("cpu")] * 4
+    S.set_activation_policy(Mesh(devs.reshape(2, 2), ("data", "model")))
+    for i, lg in enumerate(serve(False)):
+        out[f"mla/plain/{i}"] = lg
+    S.set_activation_policy(mesh22)
 
 # checkpoints between meshes, and reshard
 cfg, params, _ = tree_of("qwen3-0.6b")
@@ -339,7 +406,8 @@ def _torchrun(args, **kw):
 
 def _subst(script):
     """``script`` with its ``@NAME@`` constants filled in."""
-    for name, v in (("ARCHS", ARCHS), ("WIDE", WIDE), ("SPLIT", SPLIT),
+    for name, v in (("ARCHS", ARCHS), ("WIDE", WIDE),
+                    ("WATCH", sorted({*SPLIT, *SPLIT_MLA})),
                     ("D_MODEL", MOE["d_model"]),
                     ("D_FF", MOE["d_ff"]), ("N_EXPERTS", MOE["n_experts"]),
                     ("K", MOE["k"]), ("S", S), ("B", B)):
@@ -456,6 +524,82 @@ def test_split_layers_issue_the_tensor_parallel_collectives(runs):
             name, whole, part)
 
 
+def _expert_bytes(cfg):
+    """The float32 bytes of one layer's expert stack (E, D, F)."""
+    return cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 4
+
+
+@pytest.mark.parametrize("arch", EP)
+def test_experts_stay_on_their_expert_parallel_shards(arch, runs):
+    """The MoE block on (2, 2): each card keeps E/4 experts of each stack
+    while the layer runs, no expert stack is gathered (nor its gradient
+    reduce-scattered) on any axis, and the tokens move to the experts
+    (all-to-all over the data axis, forth and back in the forward and in
+    its recompute, and once more each way for the gradients)."""
+    port, cfg = runs["port"], cfg_of(arch, get_config)
+    experts = [r for r in port[f"{arch}/shards"] if r[0].startswith("moe/")
+               and len(r[1]) == 3]
+    assert {r[0] for r in experts} == {"moe/w_gate", "moe/w_up",
+                                       "moe/w_down"}
+    for name, whole, part in experts:
+        assert whole[0] == cfg.n_experts and part == (
+            cfg.n_experts // 4,) + whole[1:], (name, whole, part)
+    full = _expert_bytes(cfg)
+    for key in ("fwd", "step"):
+        moved = [r for r in port[f"{arch}/{key}"] if r[0] in (
+            "all-gather", "reduce-scatter") and r[3] in (full, full // 2)]
+        assert not moved, (key, moved)
+    a2a = [r for r in port[f"{arch}/step"] if r[0] == "all-to-all"]
+    assert len(a2a) == 6 and {r[1] for r in a2a} == {"data"}, a2a
+
+
+def test_mla_heads_split_over_the_model_axis(runs):
+    """deepseek-v3-671b-tp on (2, 2): MLA's head projections keep half
+    their model-axis dim on each card where its layer runs."""
+    shards = [r for r in runs["port"]["deepseek-v3-671b-tp/shards"]
+              if r[0] in SPLIT_MLA]
+    assert {r[0] for r in shards} == set(SPLIT_MLA)
+    for name, whole, part in shards:
+        d = SPLIT_MLA[name]
+        assert part[d] == whole[d] // 2 and part[1 - d] == whole[1 - d], (
+            name, whole, part)
+
+
+def test_placed_mla_prefill_and_decode_equal_the_plain_ones(runs):
+    port = runs["port"]
+    for i in range(3):
+        got, want = port[f"mla/placed/{i}"], port[f"mla/plain/{i}"]
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert rel(got, want) <= F32_LOSS, (i, rel(got, want))
+
+
+@pytest.mark.parametrize("n_experts", [64, 256])
+@pytest.mark.parametrize("sizes", [(16, 16), (2, 16, 16)], ids=str)
+def test_dispatch_buffers_follow_the_rules_expert_axes(sizes, n_experts):
+    """The placed dispatch's buffers split E over the mesh axes that the
+    rules give the expert stacks (``sharding.expert_axes``), read from the
+    stacks' placements: on (2, 16, 16) with E = 256 that is (model, data),
+    where an own choice (model, then each batch axis that divides) would
+    take (model, pod) and move the weights every layer. A pure mapping,
+    no processes."""
+    names = ("data", "model") if len(sizes) == 2 else ("pod", "data",
+                                                       "model")
+    mesh = stand_in(sizes, names)
+    shape = (2, n_experts, 7168, 2048)
+    spec = sharding.param_spec("layers/moe/w_gate", shape, mesh)
+    want = sharding.expert_axes(spec)
+    assert want == {64: ("model",), 256: ("model", "data")}[n_experts]
+    local = sharding.spec_placements(spec[1:], mesh)     # a layer's stack
+    # the groups (g, T/g, D), split over the data axes
+    groups = sharding.spec_placements(sharding.batch_spec(mesh, 3), mesh)
+    split, exchange, rest = moe._ep_layout(local, groups,
+                                           [mesh.shape[a] for a in names])
+    assert {names[i] for i in split} == set(want)
+    assert [names[i] for i in exchange] == [a for a in names
+                                            if a == "data" and a in want]
+    assert [names[i] for i in rest] == ["model"]
+
+
 def test_grouped_moe_dispatch_equals_the_reference(runs):
     port, ref = runs["port"], runs["ref"]
     assert int(port["moe/group_size"]) == int(ref["moe/group_size"]) == 2
@@ -471,6 +615,10 @@ def test_grouped_moe_dispatch_equals_the_reference(runs):
     finally:
         sharding.set_activation_policy(None)
     assert rel(y, ref["moe/y"]) <= MOE_TOL
+    # the dense dispatch on placed parameters equals its plain result
+    assert rel(port["moe/dense"], np.asarray(moe.moe_dense_dispatch(
+        params_from_numpy(p, device="cpu"), torch.tensor(x), k=MOE["k"],
+        compute_dtype=torch.float32))) <= MOE_TOL
     # one group differs: the capacity is per (group, expert)
     one = ref_moe.moe_sam_dispatch(p, x, k=MOE["k"], capacity_factor=1.0,
                                    compute_dtype=np.float32)
