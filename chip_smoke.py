@@ -212,12 +212,15 @@ Phases:
       level-format cells through the engine, each equal to the numpy
       oracle, cycles under every simulator.HW_PRESETS entry; (2) the LM
       dry-run on meta tensors (no device) for qwen3-0.6b's four shapes and
-      deepseek-v3-671b x train_4k on both production meshes: FLOPs, the
+      deepseek-v3-671b x train_4k on both production meshes, and
+      xlstm-125m x train_4k and zamba2-2.7b x train_4k on both and
+      zamba2-2.7b x decode_32k on (16, 16) in three host processes of
+      their own (``--w-ssm``, read at the end of (x)): FLOPs, the
       useful ratio model_flops / flops, per-device argument bytes against
       80 GB, the compute and memory terms at the H100's rates and the
       collective term (the step placed on the mesh's shape over a fake
-      process group: t_collective and the wire bytes a device, or the op
-      that refused placement); (3)
+      process group: t_collective and the wire bytes a device by op and
+      axis, or the op that refused placement); (3)
       ``roofline_sweep --arch qwen3-0.6b --shape train_4k``, whose probe
       extrapolation must equal (2)'s direct count; (4) the four
       ``examples/torch_*.py`` as subprocesses on the card, each exiting 0
@@ -268,6 +271,28 @@ Phases:
       forward alone (a plain step's gradients do not fit beside its
       parameters), on a one-card host run right after (a), before this
       process holds the earlier phases' tensors, and reported in (x);
+      (4) the SSM and hybrid families split on whole heads: ``python -m
+      torch.distributed.run ... -m repro_torch.launch.train --arch
+      xlstm-125m --batch 8 --seq 256 --steps 3 --model-parallel M``
+      (whole: 12 layers, sLSTM at 3 and 11) beside a plain run, the losses
+      equal on one card and within bfloat16's unit roundoff on four
+      (``X4_BF16_TOL``), then this script with ``--x4-ranks`` under the
+      same launch (beside them on four cards, after them on fewer): a
+      float32 xlstm-125m step on (4, 32) against the plain step
+      (``X4_XLSTM_TOL``: this model's own reassociation noise, measured
+      by ``tools/reassociation_noise.py``, exceeds (2)'s tolerances), a
+      counted xlstm-125m train step (bf16, dots, AdamW) and a second one
+      timed beside the plain step; zamba2-2.7b at 12 of 54 layers at full width
+      (the shared block applied twice), float32, one step on (4, 32)
+      within 1e-5 (loss) and 1e-4 (gradients) of the plain step, each
+      card's out_proj holding the rules' rows (half on four cards) while
+      its layer runs, each card's peak printed, and a counted train step
+      of it; both counted steps' collectives must equal
+      ``count_collectives`` of the same step and mesh call for call and
+      byte for byte; then a placed float32 prefill of (4, 32) and two
+      decode steps of each against the plain ones (1e-5, xlstm-125m's
+      ``X4_XLSTM_TOL``), no collective issued while an mLSTM or mamba
+      state is redistributed;
 
 Launch counters are zeroed before (b) and read after (e): scatter_workspace
 and segment_reduce must have launched there. They are zeroed again before
@@ -406,8 +431,19 @@ GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 # (w): the dry-run's SAM cells (16 level-format cells at 48^3 take about
 # 20 s of simulator cycles on the host) and the examples
 X_BATCH, X_SEQ, X_STEPS = 8, 256, 3    # (x)(2)'s qwen3-0.6b run
+# (x)(4): xlstm-125m placed against plain. The plain model alone moves
+# further than (2)'s tolerances when only its row-parallel products are
+# summed as a model axis of 2 sums them (tools/reassociation_noise.py,
+# (4, 32) on the CPU: float32 loss 8.4e-8, gradients 1.5e-4 of the
+# largest, prefill logits 1.9e-5; bfloat16 loss 4.3e-4), where
+# qwen3-0.6b's placed loss moves by about 7e-6. So its float32 step and
+# logits are held to about five times that floor, and its bfloat16 CLI
+# losses to bfloat16's unit roundoff
+X4_XLSTM_TOL = {"loss": 1e-5, "grad": 1e-3, "logits": 1e-4}
+X4_BF16_TOL = 2.0 ** -8
 W_LM_JSON = ROOT / "chiprun_out" / "w_lm.json"   # (w)(2) and (3)'s records
 W_LM_PROC = []              # (w)(2) and (3)'s process, while it runs
+W_SSM_PROCS = {}            # (w)(2)'s SSM cells' processes and records
 X3_PLAIN = []               # (x)(3)'s plain forward, where it ran early
 W_SAM = "X(i,j) = B(i,k) * C(k,j)"
 W_SAM_N = 48
@@ -680,6 +716,12 @@ def main() -> int:
         [sys.executable, str(ROOT / "chip_smoke.py"), "--w-lm",
          str(W_LM_JSON)], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True))
+    for group in W_SSM_CELLS:
+        path = ROOT / "chiprun_out" / f"w_ssm_{group}.json"
+        W_SSM_PROCS[group] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--w-ssm", group,
+             str(path)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), path)
     if torch.cuda.device_count() == 1:
         # (x)(3)'s plain forward draws 56 GB (about 65 GiB at its peak):
         # on one card it runs now, before this process holds the earlier
@@ -3327,25 +3369,8 @@ def main() -> int:
                 log(f"[w] (2) {arch} x {shape}: skipped (full attention "
                     f"at 500k)")
                 continue
-            mem, r = rec["mem_per_device"], rec["roofline"]
             w_lm[(arch, shape, rec["n_devices"])] = rec
-            coll = (f"collective {r['t_collective']:.4e} s "
-                    f"({r['collective_bytes_per_device']:.6e} wire bytes a "
-                    f"device: "
-                    f"{json.dumps(r['collective_detail']['bytes_by_op'])})"
-                    if r["t_collective"] is not None else
-                    f"collective none (placement refused at "
-                    f"{r['collective_detail']['refused']})")
-            log(f"[w] (2) {arch} x {shape} on {rec['n_devices']} devices: "
-                f"flops {rec['flops']:.6e}, useful "
-                f"{rec['useful_flop_ratio']:.4f}, arguments "
-                f"{mem['argument_bytes']} bytes a device "
-                f"({mem['argument_bytes'] / mem['hbm_bytes']:.4f} of 80 GB), "
-                f"compute {r['t_compute']:.4e} s, memory "
-                f"{r['t_memory']:.4e} s, {coll} a device at the H100's "
-                f"rates ({r['bottleneck']})")
-            if not (rec["flops"] > 0 and mem["fits"]):
-                raise AssertionError(f"(w)(2) {rec}")
+            log_w_lm_cell(rec)
 
         # (3) the probe sweep of qwen3-0.6b x train_4k: its extrapolation
         # must equal (2)'s direct count
@@ -3428,6 +3453,9 @@ def main() -> int:
 
     # -- (x) lanes and placement over several devices ------------------------
     phase_x(x_m, x_d2, workloads, per_phase)
+    workloads["launch tools (w)"]["ssm_cells"] = [
+        {k: v for k, v in rec.items() if k != "roofline"} | rec["roofline"]
+        for rec in read_w_ssm()]
     del x_m, x_d2
 
     # the model blocks' and the serving path's launches join the kernels
@@ -3675,12 +3703,13 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         raise AssertionError(f"(x)(2) moonshot's collectives on the cards "
                              f"{moon_got} against the dry-run's {moon_want}")
     x_deep = phase_x3(n_gpus, x_env, torchrun)
+    x_ssm = phase_x4(n_gpus, x_env, torchrun)
     workloads["lanes and placement (x)"] = {
         "first_ms": (time.perf_counter() - x_start) * 1e3,
         "lanes": x_runs, "qwen3_sharded": x_sharded, "qwen3_plain": x_plain,
         "qwen3_loss_rel_errs": x_errs, "moonshot": x_moon,
         "qwen3_counted": x_tp, "qwen3_dryrun": x_want,
-        "moonshot_dryrun": moon_want, "deepseek": x_deep,
+        "moonshot_dryrun": moon_want, "deepseek": x_deep, "ssm": x_ssm,
         "cards": n_gpus, "model_parallel": x_mp}
     log(f"[x] phase {time.perf_counter() - x_start:.1f} s")
 
@@ -3773,6 +3802,171 @@ def phase_x3(n_gpus, env, torchrun) -> dict:
                          (1, want_e, cfg.moe_d_ff, cfg.d_model)}):
         raise AssertionError(f"(x)(3) deepseek {out}")
     return out
+
+
+def x4_zamba2_config():
+    """(x)(4)'s zamba2-2.7b: 12 of its 54 mamba layers at full width (two
+    groups of ``attn_every`` = 6, so the shared block runs twice), float32
+    compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12,
+                               compute_dtype="float32")
+
+
+def phase_x4(n_gpus, env, torchrun) -> dict:
+    """(x)(4): the SSM and hybrid families placed. ``python -m
+    torch.distributed.run ... -m repro_torch.launch.train --arch
+    xlstm-125m`` (whole, (X_BATCH, X_SEQ), X_STEPS steps) beside a plain
+    run, then this script with ``--x4-ranks`` under the same launch
+    (``x4_rank``); the counted steps held to ``count_collectives`` of the
+    same step and mesh, zamba2's step to the plain one, the placed
+    prefills and decode steps to the plain ones."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+
+    mp = 2 if n_gpus >= 4 else 1
+    tmp = tempfile.mkdtemp()
+    cli = ["-m", "repro_torch.launch.train", "--arch", "xlstm-125m",
+           "--batch", str(X_BATCH), "--seq", str(X_SEQ), "--steps",
+           str(X_STEPS)]
+    cmds = {"sharded": torchrun + cli + [
+                "--model-parallel", str(mp), "--ckpt-dir",
+                os.path.join(tmp, "sharded")],
+            "plain": [sys.executable] + cli + [
+                "--ckpt-dir", os.path.join(tmp, "plain")],
+            "ranks": torchrun + [str(ROOT / "chip_smoke.py"), "--x4-ranks",
+                                 tmp, str(mp)]}
+
+    def start(name):
+        return time.perf_counter(), subprocess.Popen(
+            cmds[name], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    # on one card the ranks (zamba2's step and its plain twin) wait for
+    # the two xlstm-125m runs
+    later = () if n_gpus >= 4 else ("ranks",)
+    procs = {name: start(name) for name in cmds if name not in later}
+    outs = {}
+    try:
+        for name in cmds:
+            if name not in procs:
+                procs[name] = start(name)
+            started, proc = procs[name]
+            out, err = proc.communicate(timeout=600)
+            outs[name] = (out, time.perf_counter() - started)
+            (ROOT / "chiprun_out" / f"x4_{name}.log").write_text(
+                out + "\n--- stderr\n" + err)
+            if proc.returncode:
+                raise AssertionError(
+                    f"(x)(4) {name} exited {proc.returncode} (its output "
+                    f"in chiprun_out/x4_{name}.log): {out[-2000:]} "
+                    + " ".join(ln for ln in err.splitlines()
+                               if "Error" in ln)[-3000:])
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def losses_of(out):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("[train] losses ")]
+        if len(lines) != 1:
+            raise AssertionError(f"(x)(4) output {out[-2000:]}")
+        return json.loads(lines[0][len("[train] losses "):])
+    rec = json.loads(pathlib.Path(tmp, "x4.json").read_text())
+    (ROOT / "chiprun_out" / "x4.json").write_text(json.dumps(rec))
+    shutil.rmtree(tmp, ignore_errors=True)
+    mesh = tuple(rec["mesh"])
+    sharded, plain = (losses_of(outs[k][0]) for k in ("sharded", "plain"))
+    errs = [abs(a - b) / abs(b) for a, b in zip(sharded, plain)]
+    # on one card every op is the plain one's (the losses equal bit for
+    # bit on an H100); split, the bfloat16 losses are held to bfloat16's
+    # unit roundoff (X4_BF16_TOL), and the function itself in float32
+    # (the step below, X4_XLSTM_TOL)
+    tol = [1e-5 if n_gpus == mp else X4_BF16_TOL] * X_STEPS
+    if len(sharded) != X_STEPS or any(e > t for e, t in zip(errs, tol)):
+        raise AssertionError(f"(x)(4) xlstm-125m losses {sharded} against "
+                             f"the plain run's {plain}")
+    mesh_line = next(ln for ln in outs["sharded"][0].splitlines()
+                     if ln.startswith("[train] xlstm-125m"))
+    log(f"[x] (4) xlstm-125m whole, batch {X_BATCH} x {X_SEQ}, {X_STEPS} "
+        f"steps under torch.distributed.run on {n_gpus} card(s), model "
+        f"parallel {mp}: {mesh_line!r}; losses {sharded} against the plain "
+        f"run's {plain}, relative differences "
+        f"{[f'{e:.3e}' for e in errs]} (tolerances {tol}); "
+        f"{outs['sharded'][1]:.1f} s and {outs['plain'][1]:.1f} s")
+    xf, tol = rec["xlstm_f32"], X4_XLSTM_TOL
+    if xf["loss_err"] > tol["loss"] or xf["grad_err"] > tol["grad"]:
+        raise AssertionError(f"(x)(4) xlstm-125m float32 step {xf}")
+    log(f"[x] (4) xlstm-125m whole, float32, one step on (4, 32) on "
+        f"{mesh}: loss {xf['loss']:.6f}, rel err {xf['loss_err']:.3e} "
+        f"against the plain step ({tol['loss']}), the largest gradient "
+        f"leaf's error over its largest magnitude {xf['grad_err']:.3e} "
+        f"({tol['grad']})")
+
+    def held_to_dryrun(label, cfg, shape, counted):
+        t0 = time.perf_counter()
+        want = dryrun.count_collectives(cfg, shape, "dots", 1, False, mesh,
+                                        ("data", "model"))
+        got = {k: (v["calls"], v["bytes"])
+               for k, v in counted["by_axis"].items()}
+        dry = {k: (v["calls"], v["bytes"])
+               for k, v in want.get("by_axis", {}).items()}
+        log(f"[x] (4) {label}'s counted train step on {mesh} (AdamW, "
+            f"dots): peak allocated bytes a card {counted['peaks']} "
+            f"(allocated before the step {counted['before']}); collectives "
+            f"on the cards {json.dumps(got)}, wire bytes a card "
+            f"{counted['bytes']}; the dry-run's count {json.dumps(dry)}, "
+            f"wire bytes {want.get('bytes')} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if got != dry or counted["bytes"] != want.get("bytes"):
+            raise AssertionError(f"(x)(4) {label}'s collectives on the "
+                                 f"cards {got} against the dry-run's {want}")
+        return want
+    xl = rec["xlstm"]
+    xl_want = held_to_dryrun("xlstm-125m", get_config("xlstm-125m"),
+                             ShapeConfig("x4", X_SEQ, X_BATCH, "train"), xl)
+    log(f"[x] (4) xlstm-125m's placed step {xl['placed_ms']:.1f} ms against "
+        f"the plain step's {xl['plain_ms']:.1f} ms on card 0 (bf16, dots, "
+        f"AdamW; the second step of each, the host's dispatch included)")
+    zb = rec["zamba2"]
+    zcfg = x4_zamba2_config()
+    # the rules' split of out_proj's rows over the model axis
+    rows = {tuple(sh) for card in zb["out_proj"] for sh in card}
+    d_inner = zcfg.ssm_expand * zcfg.d_model
+    if (zb["loss_err"] > 1e-5 or zb["grad_err"] > 1e-4
+            or rows != {(d_inner, zcfg.d_model, d_inner // mp,
+                         zcfg.d_model)}):
+        raise AssertionError(f"(x)(4) zamba2 step {zb}")
+    log(f"[x] (4) zamba2-2.7b, 12 of 54 layers at full width (the shared "
+        f"block twice), float32, one step on (4, 32): loss "
+        f"{zb['loss']:.6f}, rel err {zb['loss_err']:.3e} against the "
+        f"plain step (1e-5), the largest gradient leaf's error over its "
+        f"largest magnitude {zb['grad_err']:.3e} (1e-4); out_proj (whole, "
+        f"local) while its layer runs {sorted(rows)}; the step's peak "
+        f"allocated bytes a card {zb['peaks']}; {outs['ranks'][1]:.1f} s "
+        f"(the ranks)")
+    zb_want = held_to_dryrun("zamba2-2.7b", zcfg,
+                             ShapeConfig("x4", 32, 4, "train"),
+                             zb["counted"])
+    for name, sv in rec["serve"].items():
+        lim = X4_XLSTM_TOL["logits"] if name == "xlstm-125m" else 1e-5
+        if sv["err"] > lim or sv["state_moves"]:
+            raise AssertionError(f"(x)(4) {name} serving {sv}")
+        log(f"[x] (4) {name}'s placed float32 prefill of (4, 32) and two "
+            f"decode steps: logits within {sv['err']:.3e} of the plain "
+            f"ones ({lim}); collectives {json.dumps(sv['by_axis'])}, none "
+            f"of an mLSTM or mamba state ({sv['state_bytes']} bytes a "
+            f"card)")
+    return dict(rec, xlstm_sharded=sharded, xlstm_plain=plain,
+                xlstm_rel_errs=errs, xlstm_dryrun=xl_want,
+                zamba2_dryrun=zb_want, model_parallel=mp)
 
 
 def x2_rank(out_dir: str, model_parallel: int) -> int:
@@ -3991,6 +4185,238 @@ def x3_rank(out_dir: str) -> int:
     return 0
 
 
+def x4_rank(out_dir: str, model_parallel: int) -> int:
+    """(x)(4)'s placed steps as one process of ``torch.distributed.run``:
+    a counted train step of xlstm-125m whole ((X_BATCH, X_SEQ), bf16,
+    dots, AdamW) and a second one timed beside a plain step on card 0;
+    zamba2-2.7b at 12 of 54 layers (``x4_zamba2_config``), float32, the
+    loss and gradients of one step on a (4, 32) batch against the plain
+    step (process 0), each card's ``out_proj`` shard while its layer
+    runs, then a counted train step of it (AdamW); a placed float32
+    prefill of (4, 32) and two decode steps of each against the plain
+    ones, their collectives counted. Process 0 writes ``x4.json``."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import CollectiveCounter
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import (make_train_step, remat_loss_fn,
+                                              value_and_grad)
+
+    train.start_process_group()
+    mesh = make_host_mesh(model_parallel)
+    sharding.set_activation_policy(mesh)
+    rank0 = dist.get_rank() == 0
+    devs = np.empty(mesh.size, dtype=object)
+    devs[:] = [torch.device("cuda", 0)] * mesh.size
+    plain_mesh = Mesh(devs.reshape(mesh.devices.shape), mesh.axis_names)
+    opt = AdamWConfig()
+    rec = {"mesh": list(mesh.devices.shape)}
+
+    def gathered(values):
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, values)
+        return got
+
+    def counted_step(cfg, params, batch):
+        """One counted train step on ``params`` placed: the collectives,
+        each card's peak and the bytes allocated before it."""
+        params = sharding.place(params, mesh)
+        state = init_opt_state(opt, params)
+        batch = sharding.place(batch, mesh,
+                               sharding.batch_shardings(mesh, batch))
+        step = make_train_step(cfg, opt, remat="dots")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counter = CollectiveCounter(mesh.device_mesh)
+        with counter:
+            out = step(params, state, batch)
+        torch.cuda.synchronize()
+        peaks = gathered((torch.cuda.max_memory_allocated(), before))
+        summary = counter.summary()
+        return {"peaks": [p for p, _ in peaks],
+                "before": [b for _, b in peaks], "bytes": summary["bytes"],
+                "by_axis": summary["by_axis"],
+                "loss": float(out[2]["loss"])}, (step, out, batch)
+
+    def step_against_plain(cfg, params, batch):
+        """The loss and gradients of one placed step (remat "dots")
+        against the plain step's on card 0 (process 0): the loss's
+        relative error and the largest gradient leaf's error over its
+        largest magnitude."""
+        loss, grads = value_and_grad(
+            remat_loss_fn(cfg, "dots"), sharding.place(params, mesh),
+            sharding.place(batch, mesh,
+                           sharding.batch_shardings(mesh, batch)))
+        grads = lm.tree_leaves(sharding.full_tensors(grads))
+        torch.cuda.synchronize()
+        out = {"loss": float(sharding.full_tensors(loss)),
+               "peak": torch.cuda.max_memory_allocated()}
+        if rank0:
+            sharding.set_activation_policy(plain_mesh)
+            want_loss, want = value_and_grad(remat_loss_fn(cfg, "dots"),
+                                             params, batch)
+            sharding.set_activation_policy(mesh)
+            out["grad_err"] = max(float((a - b).abs().max()
+                                        / max(float(b.abs().max()), 1e-30))
+                                  for a, b in zip(grads,
+                                                  lm.tree_leaves(want)))
+            out["loss_err"] = (abs(out["loss"] - float(want_loss))
+                               / abs(float(want_loss)))
+        return out
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # xlstm-125m whole: the counted step, then a second step timed beside
+    # the plain one
+    cfg = get_config("xlstm-125m")
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = batch_for_step(cfg, ShapeConfig("x4", X_SEQ, X_BATCH, "train"),
+                           0)
+    rec["xlstm"], (step, out, placed_batch) = counted_step(cfg, params,
+                                                          batch)
+    rec["xlstm"]["placed_ms"] = synced_ms(
+        lambda: step(out[0], out[1], placed_batch))
+    del step, out, placed_batch
+    if rank0:
+        sharding.set_activation_policy(plain_mesh)
+        state = init_opt_state(opt, params)
+        step = make_train_step(cfg, opt, remat="dots")
+        p, state, _ = step(params, state, batch)
+        rec["xlstm"]["plain_ms"] = synced_ms(lambda: step(p, state, batch))
+        del p, state, step
+        sharding.set_activation_policy(mesh)
+    xlstm_params = params
+
+    # xlstm-125m whole in float32: one step's loss and gradients against
+    # the plain step's
+    fcfg = dataclasses.replace(cfg, compute_dtype="float32")
+    fbatch = batch_for_step(fcfg, ShapeConfig("x4", 32, 4, "train"), 0)
+    rec["xlstm_f32"] = step_against_plain(fcfg, params, fbatch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # zamba2-2.7b at 12 of 54 layers: the step against the plain one, the
+    # out_proj shards while the layers run
+    cfg = x4_zamba2_config()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = batch_for_step(cfg, ShapeConfig("x4", 32, 4, "train"), 0)
+    shards, gather = [], lm.gathered_over_data
+
+    def watched(tree):
+        res = gather(tree)
+        t = res["cell"]["out_proj"] if isinstance(res, dict) \
+            and "cell" in res else None
+        if isinstance(t, DTensor):         # not the plain step's
+            shards.append(tuple(t.shape) + tuple(t.to_local().shape))
+        return res
+    lm.gathered_over_data = watched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zb = step_against_plain(cfg, params, batch)
+    finally:
+        lm.gathered_over_data = gather
+    got = gathered((zb.pop("peak"), sorted(set(shards))))
+    zb["peaks"] = [g[0] for g in got]
+    zb["out_proj"] = [g[1] for g in got]
+    gc.collect()
+    torch.cuda.empty_cache()
+    zb["counted"], _ = counted_step(cfg, params, batch)
+    rec["zamba2"] = zb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a placed float32 prefill and two decode steps of each against the
+    # plain ones; no collective may move an mLSTM or mamba state
+    rec["serve"] = {}
+    xcfg = dataclasses.replace(get_config("xlstm-125m"),
+                               compute_dtype="float32")
+    for name, scfg, sparams in (("xlstm-125m", xcfg, xlstm_params),
+                                ("zamba2-2.7b", cfg, params)):
+        toks = torch.tensor(np.random.default_rng(SEED).integers(
+            0, scfg.vocab, (4, 34)), device="cuda")
+
+        def serve(placed):
+            caches = lm.init_caches(scfg, 4, 40, dtype=torch.float32)
+            ps = sparams
+            if placed:
+                ps = sharding.place(sparams, mesh)
+                caches = sharding.place(caches, mesh, sharding
+                                        .cache_shardings(mesh, caches))
+            logits = []
+            for lo, hi in ((0, 32), (32, 33), (33, 34)):
+                b = {"tokens": toks[:, lo:hi]}
+                if placed:
+                    b = sharding.place(b, mesh,
+                                       sharding.batch_shardings(mesh, b))
+                with torch.no_grad():
+                    lg, caches = lm.forward(scfg, ps, b, caches)
+                logits.append(sharding.full_tensors(lg))
+            return logits
+        # a layer's mLSTM or mamba state: the collectives issued while
+        # any tensor of its shape is redistributed (the only way the
+        # layers move a cache) are recorded apart
+        if name == "xlstm-125m":
+            hd = 2 * scfg.d_model // scfg.n_heads
+            state = (4, scfg.n_heads, hd, hd)
+        else:
+            h = scfg.ssm_expand * scfg.d_model // scfg.ssm_headdim
+            state = (4, h, scfg.ssm_state, scfg.ssm_headdim)
+        moves, redistribute = [], DTensor.redistribute
+
+        def watched_redistribute(self, *args, **kwargs):
+            if tuple(self.shape) != state:
+                return redistribute(self, *args, **kwargs)
+            with CollectiveCounter(mesh.device_mesh) as inner:
+                out = redistribute(self, *args, **kwargs)
+            moves.extend(inner.records)
+            return out
+        counter = CollectiveCounter(mesh.device_mesh)
+        DTensor.redistribute = watched_redistribute
+        try:
+            with counter:
+                got = serve(True)
+        finally:
+            DTensor.redistribute = redistribute
+        sv = {"by_axis": {k: (v["calls"], v["bytes"]) for k, v in
+                          counter.summary()["by_axis"].items()},
+              "state_bytes": int(np.prod(state)) * 4 // mesh.size,
+              "state_moves": moves}
+        if rank0:
+            sharding.set_activation_policy(plain_mesh)
+            want = serve(False)
+            sharding.set_activation_policy(mesh)
+            sv["err"] = max(float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(got, want))
+        rec["serve"][name] = sv
+        del got
+    if rank0:
+        (pathlib.Path(out_dir) / "x4.json").write_text(json.dumps(rec))
+    sharding.set_activation_policy(None)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def x3_plain_run(card=None) -> dict:
     """(x)(3)'s plain forward in a process of its own (``--x3-plain``), on
     ``card`` where given (``CUDA_VISIBLE_DEVICES``), else on ``cuda:0``;
@@ -4115,6 +4541,81 @@ def phase_x_alone() -> int:
     return 0
 
 
+def log_w_lm_cell(rec) -> None:
+    """Logs one (w)(2) record (``dryrun.main``'s); fails the phase unless
+    its FLOPs are counted and its arguments fit the card."""
+    arch, shape = rec["arch"], rec["shape"]
+    mem, r = rec["mem_per_device"], rec["roofline"]
+    detail = r["collective_detail"]
+    wires = {k: v["wire"] for k, v in detail.get("by_axis", {}).items()}
+    coll = (f"collective {r['t_collective']:.4e} s "
+            f"({r['collective_bytes_per_device']:.6e} wire bytes a device: "
+            f"{json.dumps(detail['bytes_by_op'])}; by op and axis "
+            f"{json.dumps(wires)})"
+            if r["t_collective"] is not None else
+            f"collective none (placement refused at "
+            f"{r['collective_detail']['refused']})")
+    log(f"[w] (2) {arch} x {shape} on {rec['n_devices']} devices: "
+        f"flops {rec['flops']:.6e}, useful "
+        f"{rec['useful_flop_ratio']:.4f}, arguments "
+        f"{mem['argument_bytes']} bytes a device "
+        f"({mem['argument_bytes'] / mem['hbm_bytes']:.4f} of 80 GB), "
+        f"compute {r['t_compute']:.4e} s, memory "
+        f"{r['t_memory']:.4e} s, {coll} a device at the H100's "
+        f"rates ({r['bottleneck']})")
+    if not (rec["flops"] > 0 and mem["fits"]):
+        raise AssertionError(f"(w)(2) {rec}")
+
+
+# (w)(2)'s SSM and hybrid cells, counted in host processes of their own
+# and read at the end of (x): (arch, shape, ``dryrun`` mesh flags).
+# xlstm-125m's sLSTM scan is counted op by op (about 300 s for the cell's
+# FLOPs and bytes and 250 s a mesh on the host), so its meshes get a
+# process each
+W_SSM_CELLS = {"zamba2": [("zamba2-2.7b", "train_4k", ["--both-meshes"]),
+                          ("zamba2-2.7b", "decode_32k", [])],
+               "xlstm": [("xlstm-125m", "train_4k", [])],
+               "xlstm-multi-pod": [("xlstm-125m", "train_4k",
+                                    ["--multi-pod"])]}
+
+
+def w_ssm_counts(group: str, out_path: str) -> int:
+    """(w)(2)'s cells of ``W_SSM_CELLS[group]`` on the host: each
+    ``dryrun.main`` record and the seconds it took, to ``out_path``."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(2)
+    cells, t0 = [], time.perf_counter()
+    for arch, shape, meshes in W_SSM_CELLS[group]:
+        cells += dryrun.main(["--arch", arch, "--shape", shape] + meshes)
+    pathlib.Path(out_path).write_text(json.dumps(
+        {"cells": cells, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def read_w_ssm() -> list:
+    """(w)(2)'s SSM and hybrid cells from their host processes (started
+    after (a)): logged, and their records returned."""
+    cells = []
+    for group, (proc, path) in W_SSM_PROCS.items():
+        out, err = proc.communicate(timeout=900)
+        (ROOT / "chiprun_out" / f"w_ssm_{group}.log").write_text(
+            out + "\n--- stderr\n" + err)
+        if proc.returncode:
+            raise AssertionError(f"(w)(2) {group} exited {proc.returncode} "
+                                 f"(its output in chiprun_out/"
+                                 f"w_ssm_{group}.log): {err[-3000:]}")
+        got = json.loads(path.read_text())
+        for rec in got["cells"]:
+            log_w_lm_cell(rec)
+        cells += got["cells"]
+        log(f"[w] (2) the {group} cells counted in {got['seconds']:.1f} s "
+            f"on the host, beside (b)-(x)")
+    return cells
+
+
 def w_lm_counts(out_path: str) -> int:
     """(w)(2) and (3) in a process of their own: the LM dry-run of
     qwen3-0.6b's four shapes and deepseek-v3-671b x train_4k on both
@@ -4147,7 +4648,7 @@ def w_lm_counts(out_path: str) -> int:
 
 
 def _stop_background() -> None:
-    for proc in W_LM_PROC:
+    for proc in W_LM_PROC + [p for p, _ in W_SSM_PROCS.values()]:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -4156,10 +4657,14 @@ def _stop_background() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--w-lm"]:
         sys.exit(w_lm_counts(sys.argv[2]))
+    if sys.argv[1:2] == ["--w-ssm"]:
+        sys.exit(w_ssm_counts(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--x2-ranks"]:
         sys.exit(x2_rank(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--x3-ranks"]:
         sys.exit(x3_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--x4-ranks"]:
+        sys.exit(x4_rank(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--x3-plain"]:
         sys.exit(x3_plain(sys.argv[2]))
     if sys.argv[1:] == ["--phase-x"]:

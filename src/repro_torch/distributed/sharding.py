@@ -30,21 +30,27 @@ each mesh axis ``Shard(d)`` where the axis names tensor dim ``d``,
 carries a process group, one of size 1 included, and moves plain tensors
 on a mesh of one device without one. The model gathers placed
 parameters where it uses them, a layer at a time. The transformer
-layers' projections (MLA's included) and the head and embedding are
-gathered over the data group only (``gathered_over_data``, FSDP's
-all-gather): each keeps its ``Shard`` on the ``model`` axis, so the
-products are split as the reference's XLA partitions them
-(column-parallel ``wq``/``wk``/``wv``, MLA's ``wq_b``/``wkv_b``,
-``w_gate``/``w_up`` and head, row-parallel ``wo`` and ``w_down``, a
+layers' projections (MLA's and zamba2's shared block's included), the
+SSM stacks' (mamba2's, mLSTM's) and the head and embedding are gathered
+over the data group only (``gathered_over_data``, FSDP's all-gather):
+each keeps its ``Shard`` on the ``model`` axis, so the products are
+split as the reference's XLA partitions them (column-parallel
+``wq``/``wk``/``wv``, MLA's ``wq_b``/``wkv_b``, ``w_gate``/``w_up`` and
+head, row-parallel ``wo``, ``w_down`` and ``out_proj``, a
 vocab-parallel embedding), and activations are sharded over the batch
 and, between a column- and a row-parallel product, over the model axis.
-A MoE block is gathered by ``gathered_but_experts``: its expert stacks
-not at all, so each card keeps the experts of its ``Shard`` on the E
-axes (``expert_axes``: model, and the data axes where E divides them)
-and the dispatch moves the tokens to them, its router and shared
-experts over the data group only. Every other stack (mamba2, xlstm,
-zamba2's shared block) is gathered whole (``gathered``, as ZeRO-3
-does). The activation
+Four leaves pack segments of unequal width along the split axis
+(mamba2's ``in_proj`` and ``conv_w``, mLSTM's ``w_up`` and ``w_if``): a
+contiguous model shard of them is not whole heads, so each shard takes
+the columns of its own heads (``packed_columns``) through
+``packed_product`` or, where the product runs per shard, from the
+weight made whole over the model axis. A MoE block is gathered by
+``gathered_but_experts``: its expert stacks not at all, so each card
+keeps the experts of its ``Shard`` on the E axes (``expert_axes``:
+model, and the data axes where E divides them) and the dispatch moves
+the tokens to them, its router and shared experts over the data group
+only. sLSTM's leaves, which the rules replicate but for its recurrent
+``r``, are made whole (``gathered``, as ZeRO-3 does). The activation
 policy (``set_activation_policy``, ``data_group_size``,
 ``shard_activation``) is the reference's: ``shard_activation``
 redistributes a DTensor to its fitted spec's placements, and is the
@@ -59,9 +65,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 
 from ..launch.mesh import Mesh
 
@@ -71,6 +78,10 @@ __all__ = ["data_axes", "path_str", "param_spec", "params_shardings",
            "gathered_over_data", "gathered_but_experts", "expert_axes",
            "model_sharded", "model_coordinate",
            "whole_over_model", "reduced", "model_input", "over_model",
+           "packed_columns", "packed_ranges", "pick_columns",
+           "packed_path", "packed_product", "split_rows", "sum_over_model",
+           "gather_over_model",
+           "per_shard_grads",
            "full_tensors",
            "spmd_region", "set_activation_policy", "data_group_size",
            "shard_activation"]
@@ -413,6 +424,66 @@ class _SumOverGroup(torch.autograd.Function):
         return grad, None
 
 
+class _AllSum(torch.autograd.Function):
+    """The all-reduce (sum) of a local tensor over one process group whose
+    backward all-reduces the gradient too: every shard uses the sum, so
+    each shard's term gets the sum of their gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group_name):
+        ctx.group_name = group_name
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_reduce(x, "sum", group_name))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_reduce(grad.contiguous(), "sum",
+                                              ctx.group_name)), None
+
+
+class _GatherOverGroup(torch.autograd.Function):
+    """The all-gather of a local tensor's shards along ``dim`` over one
+    process group of ``size``, in rank order; its backward is the
+    reduce-scatter (sum) of the gradient back to the shards."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group_name, size):
+        ctx.args = (dim, group_name, size)
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_gather_into_tensor(
+            x.movedim(dim, 0).contiguous(), size, group_name)).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, group_name, size = ctx.args
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.reduce_scatter_tensor(
+            grad.movedim(dim, 0).contiguous(), "sum", size,
+            group_name)).movedim(0, dim), None, None, None
+
+
+def gather_over_model(local, device_mesh, dim: int):
+    """The local shard ``local`` of a tensor split on ``dim`` over the
+    ``model`` axis of ``device_mesh`` made whole (inside ``local_map``):
+    one all-gather, and a reduce-scatter of the gradient on its way back.
+    Unlike ``whole_over_model`` before a ``local_map``, the gradient leaves
+    with its ``Partial`` sums on the data axes intact, so FSDP's
+    reduce-scatter over them follows (DTensor would all-reduce the whole
+    gradient over the data axes first)."""
+    i = device_mesh.mesh_dim_names.index("model")
+    return _GatherOverGroup.apply(local, dim, device_mesh.get_group(i)
+                                  .group_name, device_mesh.size(i))
+
+
+def sum_over_model(local, device_mesh):
+    """The sum of the local tensor ``local`` over the ``model`` axis of
+    ``device_mesh`` (inside ``local_map``): one all-reduce, and one more
+    of the gradient on its way back."""
+    i = device_mesh.mesh_dim_names.index("model")
+    return _AllSum.apply(local, device_mesh.get_group(i).group_name)
+
+
 def reduced(t):
     """A DTensor ``t`` with each ``Partial`` placement (the sum a
     row-parallel or vocab-parallel product leaves over the model axis)
@@ -448,6 +519,135 @@ def over_model(t, placement) -> list:
     ``placement``."""
     i = _model_dim(t)
     return [placement if j == i else p for j, p in enumerate(t.placements)]
+
+
+def packed_ranges(widths, heads, rank: int, size: int) -> list:
+    """The column ranges ``[(lo, hi), ...]`` of a packed leaf that model
+    shard ``rank`` of ``size`` needs for its own heads. The leaf packs
+    segments of ``widths`` side by side; ``heads[i]`` is the number of
+    heads segment ``i`` is cut into (the shard takes heads ``rank·h/size``
+    to ``(rank+1)·h/size``), or None for a segment every shard needs
+    whole (mamba2's ``B`` and ``C``, read by every head of their group,
+    and mLSTM's ``xi``, the input of the column-parallel ``wq``/``wk``/
+    ``wv``). Adjacent ranges are merged."""
+    out, start = [], 0
+    for w, h in zip(widths, heads):
+        if h is None:
+            lo, hi = start, start + w
+        else:
+            if h % size or w % h:
+                raise ValueError(f"a segment of {w} columns in {h} heads "
+                                 f"does not split over {size} shards")
+            per = w // size
+            lo, hi = start + rank * per, start + (rank + 1) * per
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+        start += w
+    return out
+
+
+def packed_columns(widths, heads, rank: int, size: int) -> np.ndarray:
+    """The column indices of ``packed_ranges``, in order."""
+    return np.concatenate([np.arange(lo, hi) for lo, hi in packed_ranges(
+        widths, heads, rank, size)])
+
+
+def pick_columns(t, ranges):
+    """``t``'s last-dim columns in ``ranges`` (``packed_ranges``), side by
+    side."""
+    if len(ranges) == 1 and ranges[0] == (0, t.shape[-1]):
+        return t
+    return torch.cat([t[..., lo:hi] for lo, hi in ranges], dim=-1)
+
+
+def packed_path(d_in: int, tokens: int, weight_itemsize: int,
+                act_itemsize: int) -> str:
+    """Which all-gather over the model axis ``packed_product`` takes:
+    ``"weight"``, the packed (``d_in``, columns) weight made whole, where
+    that moves no more bytes than ``"activation"``, the product's output
+    of ``tokens`` rows (this data shard's) over the same columns. Both
+    gather every column and both gradients go back as a reduce-scatter of
+    the same size, so the rule is ``d_in · weight_itemsize <= tokens ·
+    act_itemsize``: the weight at a train step's tokens, the activation
+    at a decode step's."""
+    return ("weight" if d_in * weight_itemsize <= tokens * act_itemsize
+            else "activation")
+
+
+def split_rows(t, split: bool) -> list:
+    """For each mesh axis of DTensor ``t`` (a per-shard computation's rows),
+    whether the shards along it compute different things: a data axis
+    where ``t`` is split, the model axis where the heads are."""
+    names = t.device_mesh.mesh_dim_names or ()
+    return [(split if n == "model" else p.is_shard())
+            for n, p in zip(names, t.placements)]
+
+
+def per_shard_grads(t, differs) -> tuple:
+    """The gradient placements of DTensor ``t`` read by a per-shard
+    computation (``local_map``) that differs along the mesh axes flagged
+    in ``differs`` (``split_rows``): a ``Partial`` sum where ``t`` is
+    replicated on such an axis (each shard's gradient covers its own rows
+    or heads), ``t``'s placement elsewhere."""
+    return tuple(Partial() if d and p.is_replicate() else p
+                 for d, p in zip(differs, t.placements))
+
+
+def packed_product(x, w, widths, heads, split: bool, compute_dtype):
+    """``x @ w`` for a packed weight ``w`` (``packed_ranges``' segments
+    along its columns), each model shard holding the columns of its own
+    heads: a DTensor split on its last dim over the model axis whose
+    local shard is ``x``'s rows times those columns (a segment every
+    shard needs appears on each). Without ``split``, or on plain tensors,
+    every column on every shard (``w`` made whole over the model axis).
+
+    Split, the columns come by the path ``packed_path`` picks from the
+    shapes, each an all-gather over the model axis where ``w`` is split
+    on it: the weight path makes ``w`` whole on each shard
+    (``gather_over_model``: its gradient a reduce-scatter over the model
+    axis, then FSDP's over the data axes), picks the columns and
+    multiplies locally; the activation path runs the column-parallel
+    product as the rules place ``w``, gathers its output and picks the
+    columns (its gradient a reduce-scatter of the output's). Either way a column that several
+    shards use gets the sum of their gradients, and ``x``'s gradient is
+    all-reduced in its dtype (``model_input``)."""
+    cd = compute_dtype
+    if not isinstance(x, DTensor) or not split:
+        return x @ whole_over_model(w).to(cd)
+    rank, size = model_coordinate(x)
+    ranges = packed_ranges(widths, heads, rank, size)
+    d_in = x.shape[-1]
+    path = "weight"
+    if model_sharded(w, w.ndim - 1):
+        path = packed_path(d_in, x.to_local().numel() // d_in,
+                           w.element_size(), cd.itemsize)
+    x = model_input(x)
+    differs = split_rows(x, True)
+    out_pl = tuple(over_model(x, Shard(x.ndim - 1)))
+    if path == "weight":
+        mesh = x.device_mesh
+        dim = w.ndim - 1
+        gather = model_sharded(w, dim)
+        w = _replicated_on(w, ("pod", "data"))
+
+        def local(xl, wl):
+            if gather:
+                wl = gather_over_model(wl, mesh, dim)
+            return xl @ pick_columns(wl, ranges).to(cd)
+        return local_map(
+            local, out_placements=(out_pl,),
+            in_placements=(x.placements, w.placements),
+            in_grad_placements=(per_shard_grads(x, differs),
+                                per_shard_grads(w, differs)),
+            device_mesh=mesh)(x, w)
+    full = whole_over_model(x @ w.to(cd))
+    return local_map(
+        lambda yl: pick_columns(yl, ranges), out_placements=(out_pl,),
+        in_placements=(full.placements,),
+        in_grad_placements=(per_shard_grads(full, differs),),
+        device_mesh=x.device_mesh)(full)
 
 
 def full_tensors(tree):

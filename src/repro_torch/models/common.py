@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..core import coord_ops as co
 from ..distributed import sharding as shd
@@ -44,7 +46,11 @@ def normal(gen: Optional[torch.Generator], shape) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              add_unit_offset: bool = False) -> torch.Tensor:
     """RMS norm over the last axis in float32, returned in ``x``'s dtype;
-    ``add_unit_offset`` scales by ``1 + scale`` (the Gemma convention)."""
+    ``add_unit_offset`` scales by ``1 + scale`` (the Gemma convention).
+    A DTensor row split over the model axis is normalized per shard
+    (``_split_rms_norm``)."""
+    if shd.model_sharded(x, x.ndim - 1):
+        return _split_rms_norm(x, scale, eps, add_unit_offset)
     dt = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
@@ -53,6 +59,32 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     if add_unit_offset:
         w = 1.0 + w
     return (x * w).to(dt)
+
+
+def _split_rms_norm(x, scale, eps: float, add_unit_offset: bool):
+    """``rms_norm`` of a DTensor ``x`` whose last dim is split over the
+    model axis, through ``local_map``: each shard sums the squares of its
+    columns, one float32 all-reduce of the (..., 1) sums over the model
+    axis gives the whole row's (``sharding.sum_over_model``: the gradient
+    all-reduced back), and each shard scales its own columns."""
+    mesh, d = x.device_mesh, x.shape[-1]
+    scale = scale.redistribute(mesh, shd.over_model(scale, Shard(0)))
+
+    def local(xl, wl):
+        dt = xl.dtype
+        xf = xl.float()
+        ss = shd.sum_over_model(
+            torch.sum(torch.square(xf), dim=-1, keepdim=True), mesh)
+        xf = xf * torch.rsqrt(ss / d + eps)
+        w = wl.float()
+        if add_unit_offset:
+            w = 1.0 + w
+        return (xf * w).to(dt)
+    return local_map(
+        local, out_placements=(tuple(x.placements),),
+        in_placements=(tuple(x.placements), tuple(scale.placements)),
+        in_grad_placements=(tuple(x.placements), shd.per_shard_grads(
+            scale, shd.split_rows(x, True))), device_mesh=mesh)(x, scale)
 
 
 def init_rms(d: int, dtype, device) -> torch.Tensor:

@@ -36,14 +36,16 @@ parameters placed over a process group's mesh and changes nothing
 without a policy or on plain tensors. Placed parameters are gathered
 where they are used (each stack a layer at a time, inside the layer's
 checkpoint under remat): a transformer layer's attention (MLA's too)
-and MLP, the embedding and the head over the data group only, so their
-products are split over the model axis by the reference's sharding
-rules (``distributed.sharding``; a row-parallel product's partial sum
-is reduced before the residual add); a MoE block's experts not at all
-(each card keeps its expert-parallel shard and the dispatch moves the
-tokens to it, ``models.moe``), its router and shared experts over the
-data group; mamba2, xlstm and zamba2's shared block whole, so their
-activations are sharded over the batch only. ``forward`` runs inside
+and MLP, a mamba2 or mLSTM layer, the embedding, the head and zamba2's
+shared block (once a forward, for all its applications) over the data
+group only, so their products are split over the model axis by the
+reference's sharding rules (``distributed.sharding``; the SSM blocks on
+whole heads, their recurrences per shard; a row-parallel product's
+partial sum is reduced before the residual add); a MoE block's experts
+not at all (each card keeps its expert-parallel shard and the dispatch
+moves the tokens to it, ``models.moe``), its router and shared experts
+over the data group; an sLSTM layer whole (its cell runs per data
+shard). ``forward`` runs inside
 ``spmd_region``, so the plain tensors it builds meet DTensors as
 replicated ones. Token ids outside the vocabulary raise ``ValueError``
 where the reference's gather would clamp them.
@@ -431,11 +433,13 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     return x, prefix_len
 
 
-# the stacks that ``_scan_stack`` runs, whose layers it gathers one by one
-_GATHERED_BY_LAYER = ("layers", "dense_layers", "mamba_layers")
+# the stacks whose layers are gathered one by one where they run
+_GATHERED_BY_LAYER = ("layers", "dense_layers", "mamba_layers",
+                      "mlstm_layers", "slstm_layers")
 # the leaves split over the model axis where they are used: the
-# vocab-parallel embedding and the column-parallel head
-_SPLIT_TOP = ("embed", "lm_head")
+# vocab-parallel embedding, the column-parallel head and zamba2's shared
+# block (its projections column- and row-parallel)
+_SPLIT_TOP = ("embed", "lm_head", "shared_attn")
 
 
 def forward(cfg: ModelConfig, params, batch, caches=None, remat=None
@@ -504,7 +508,7 @@ def _ssm_forward(cfg, params, x, caches):
     mi = si = 0
     for i in range(cfg.n_layers):
         if i in cfg.slstm_layers:
-            p = params["slstm_layers"][si]
+            p = gathered(params["slstm_layers"][si])
             c = caches["slstm"][si] if caches else None
             h = rms_norm(x, p["ln"])
             y, c2 = slstm(p["cell"], h, n_heads=cfg.n_heads,
@@ -512,7 +516,7 @@ def _ssm_forward(cfg, params, x, caches):
             new_caches["slstm"].append(c2)
             si += 1
         else:
-            p = m_params[mi]
+            p = gathered_over_data(m_params[mi])
             c = m_caches[mi] if caches else None
             h = rms_norm(x, p["ln"])
             y, c2 = mlstm(p["cell"], h, n_heads=cfg.n_heads,
@@ -520,9 +524,10 @@ def _ssm_forward(cfg, params, x, caches):
                           cache=c)
             new_caches["mlstm"].append(c2)
             mi += 1
+        # a row-parallel product's partial sum reduced (one all-reduce);
         # each layer's output split over the batch only, as a scanned
         # stack's is (DTensor would carry a layer's own layout onward)
-        x = shard_activation(x + y.to(x.dtype))
+        x = shard_activation(x + reduced(y).to(x.dtype))
     if caches is not None and new_caches["mlstm"]:
         new_caches["mlstm"] = tree_stack(new_caches["mlstm"])
     return x, new_caches
@@ -543,11 +548,12 @@ def _hybrid_forward(cfg, params, x, caches, remat=None):
                        headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
                        chunk=cfg.ssm_chunk, compute_dtype=cfg.cdtype,
                        cache=c)
-        return h + y.to(h.dtype), c2
+        return h + reduced(y).to(h.dtype), c2
 
     for gi in range(n_groups):
         c = caches["mamba"][gi] if caches else None
-        x, c2 = _scan_stack(groups[gi], x, mamba_layer, c, remat)
+        x, c2 = _scan_stack(groups[gi], x, mamba_layer, c, remat,
+                            gathered_over_data)
         new_caches["mamba"].append(c2)
         ac = caches["attn"][gi] if caches else None
         x, ac2 = _tf_layer(cfg, params["shared_attn"], x, False, ac)

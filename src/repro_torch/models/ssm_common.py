@@ -12,15 +12,46 @@ chunks, one chunk after another: the state-space-duality schedule.
 
 A port of ``repro.models.ssm_common``: the reference's ``lax.scan`` over
 chunks is a Python loop over chunks; every product is ``torch.einsum``
-in float32, as there.
+in float32, as there. Placed, both blocks run the recurrence per shard
+on local tensors (``heads_split``, ``per_shard_rows``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate
 
-__all__ = ["chunked_gated_recurrence", "gated_recurrence_step"]
+from ..distributed import sharding as shd
+
+__all__ = ["chunked_gated_recurrence", "gated_recurrence_step",
+           "heads_split", "per_shard_rows"]
+
+
+def heads_split(x, n_heads: int, projections_split: bool
+                ) -> Tuple[int, int]:
+    """(this process's model coordinate, the model axis' size) where a
+    block of ``n_heads`` heads whose input is DTensor ``x`` runs split on
+    whole heads: its projections split over a model axis of more than one
+    device (``projections_split``) that divides the heads; else (0, 1),
+    every head on every shard."""
+    names = x.device_mesh.mesh_dim_names or ()
+    if not projections_split or "model" not in names:
+        return 0, 1
+    rank, size = shd.model_coordinate(x)
+    return (rank, size) if size > 1 and n_heads % size == 0 else (0, 1)
+
+
+def per_shard_rows(x):
+    """DTensor ``x`` (B, S, D) at the placements a per-shard recurrence
+    reads it at: its batch split as it is, every other dim whole (a
+    sequence split would cut the recurrence) and replicated over the
+    model axis."""
+    names = x.device_mesh.mesh_dim_names or ()
+    pl = tuple(p if n != "model" and p.is_shard() and p.dim == 0
+               else Replicate() for n, p in zip(names, x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
 
 
 def chunked_gated_recurrence(q, k, v, log_decay, beta, *, chunk: int = 64,

@@ -20,15 +20,23 @@
     reduced config at widths whose projections the rules split over the
     model axis (d_model 256, head dim 64, d_ff 256: at the reduced widths
     every leaf is under the rules' 2^16-element floor and replicated),
-    and for ``moonshot-v1-16b-a3b-ep`` and ``deepseek-v3-671b-tp``, one
+    for ``moonshot-v1-16b-a3b-ep`` and ``deepseek-v3-671b-tp``, one
     dense and one MoE layer at widths where the router, the expert and
-    shared-expert stacks and (deepseek) every MLA projection split;
+    shared-expert stacks and (deepseek) every MLA projection split, and
+    for ``xlstm-125m-tp`` (d_model 128) and ``zamba2-2.7b-tp`` (d_model
+    256, 8 heads of 32, d_ff 256), where the mLSTM stack's ``w_up``,
+    ``wq``/``wk``/``wv`` and ``w_down`` split, and zamba2's ``in_proj``
+    (its shard boundary, 544 of 1088 columns, inside ``x``),
+    ``out_proj`` and every projection of its shared block;
   - the MoE cases' experts on their expert-parallel shards: E/4 a card
     while the layer runs, no expert stack gathered (nor its gradient
     reduce-scattered) on any axis, the tokens moved by all-to-alls over
     the data axis; MLA's ``wq_b``/``wkv_b``/``wo`` shards half their
-    model-axis dim; a placed float32 MLA prefill and two decode steps
-    within 1e-5 of the plain ones;
+    model-axis dim; a placed float32 prefill and two decode steps of the
+    MLA case and of the two SSM cases within 1e-5 of the plain ones;
+  - the SSM cases' split projections (mLSTM's ``wq``/``wk``/``wv`` and
+    ``w_down``, mamba2's ``out_proj``, the shared block's) keep half
+    their model-axis dim on each card while their layer runs;
   - that step's collectives (``launch.dryrun.CollectiveCounter``): no
     all-gather over the model axis but the label pick's logits (so none
     of a split projection), two all-reduces over the model axis a layer
@@ -97,7 +105,8 @@ from repro_torch.train.train_step import (remat_loss_fn,  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "qwen3-0.6b-tp",
-         "moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp")
+         "moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp", "xlstm-125m-tp",
+         "zamba2-2.7b-tp")
 # cases beyond the registered reduced configs: (arch, widths replaced).
 # At the MoE cases' widths the router, the expert stacks, the shared
 # experts and (deepseek) every MLA projection reach the rules' 2^16
@@ -111,13 +120,27 @@ WIDE = {"qwen3-0.6b-tp": ("qwen3-0.6b",
         "deepseek-v3-671b-tp": ("deepseek-v3-671b", dict(
             n_layers=2, d_model=1024, n_heads=8, n_kv_heads=8, d_ff=64,
             n_experts=64, moe_d_ff=64, q_lora_rank=64, kv_lora_rank=64,
-            qk_nope_dim=96, rope_dim=32, v_head_dim=32))}
+            qk_nope_dim=96, rope_dim=32, v_head_dim=32)),
+        # the SSM and hybrid families at widths the rules split over the
+        # model axis (the reduced ones fall under the 2^16 floor)
+        "xlstm-125m-tp": ("xlstm-125m", dict(d_model=128)),
+        "zamba2-2.7b-tp": ("zamba2-2.7b", dict(
+            d_model=256, head_dim=32, n_heads=8, n_kv_heads=8, d_ff=256))}
 EP = ("moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp")
+SSM = ("xlstm-125m-tp", "zamba2-2.7b-tp")
+# the cases whose placed prefill and decode steps are held to the plain
+SERVED = ("deepseek-v3-671b-tp",) + SSM
 # the split projections and the tensor dim each splits over the model axis
 SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
          "w_down": 0}
 # MLA's projections split on whole heads
 SPLIT_MLA = {"wq_b": 1, "wkv_b": 1, "wo": 0}
+# the SSM cases' split projections: mLSTM's (its packed ``w_up`` too),
+# mamba2's row-parallel ``out_proj`` and the shared block's
+SPLIT_SSM = dict(SPLIT, out_proj=0)
+# the ones each SSM case must show
+SPLIT_SHOWN = {"xlstm-125m-tp": {"w_up", "wq", "wk", "wv", "w_down"},
+               "zamba2-2.7b-tp": set(SPLIT_SSM)}
 B, S = 4, 16
 MOE = dict(d_model=64, d_ff=32, n_experts=8, k=2, tokens=(4, 16))
 F32_LOSS, F32_GRAD, MOE_TOL = 1e-5, 1e-4, 1e-5
@@ -291,6 +314,19 @@ for arch in @ARCHS@:
         g.full_tensor().numpy()), grads)
     out[f"{arch}/placed"] = np.asarray([isinstance(t, DTensor) for t in M.tree_leaves(dp)]).all()
 
+# the SSM cases again with their packed products by the weight path (at
+# these token counts the activation path moves fewer bytes)
+packed_path, S.packed_path = S.packed_path, lambda *a: "weight"
+for arch in @SSM@:
+    cfg, params, batch = tree_of(arch)
+    dp, db = put(mesh22, params, batch)
+    loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), dp, db)
+    out[f"weight-path/{arch}/loss"] = S.full_tensors(loss).numpy()
+    S.map_with_path(lambda path, g: out.__setitem__(
+        f"weight-path/{arch}/grad/" + "/".join(map(str, path)),
+        g.full_tensor().numpy()), grads)
+S.packed_path = packed_path
+
 # the grouped MoE dispatch on a data-sharded DTensor
 p = params_from_numpy({k[6:]: v for k, v in inp.items() if k.startswith("moe/p/")}, device="cpu")
 x = torch.tensor(inp["moe/x"])
@@ -303,35 +339,35 @@ out["moe/group_size"] = np.asarray(S.data_group_size())
 out["moe/dense"] = moe.moe_dense_dispatch(
     S.place(p, mesh22), dx, k=@K@, compute_dtype=torch.float32).full_tensor().numpy()
 
-# a placed MLA prefill and two decode steps against the plain ones on one
+# a placed prefill and two decode steps against the plain ones on one
 # device (the same MoE groups: the policy of a (2, 2) mesh)
-cfg, params, _ = tree_of("deepseek-v3-671b-tp")
-toks = torch.tensor(np.random.default_rng(3).integers(0, cfg.vocab, (@B@, 10)))
-
-def serve(placed):
+def serve(arch, placed):
+    cfg, params, _ = tree_of(arch)
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (@B@, 10)))
     caches = M.init_caches(cfg, @B@, 16, dtype=torch.float32, device="cpu")
-    ps = params
     if placed:
-        ps = S.place(params, mesh22)
+        params = S.place(params, mesh22)
         caches = S.place(caches, mesh22, S.cache_shardings(mesh22, caches))
     logits = []
     for lo, hi in ((0, 8), (8, 9), (9, 10)):
         b = {"tokens": toks[:, lo:hi]}
         if placed:
             b = S.place(b, mesh22, S.batch_shardings(mesh22, b))
-        lg, caches = M.forward(cfg, ps, b, caches)
+        lg, caches = M.forward(cfg, params, b, caches)
         logits.append(S.full_tensors(lg).numpy())
     return logits
 
-for i, lg in enumerate(serve(True)):
-    out[f"mla/placed/{i}"] = lg
-if rank == 0:
-    devs = np.empty(4, dtype=object)
-    devs[:] = [torch.device("cpu")] * 4
-    S.set_activation_policy(Mesh(devs.reshape(2, 2), ("data", "model")))
-    for i, lg in enumerate(serve(False)):
-        out[f"mla/plain/{i}"] = lg
-    S.set_activation_policy(mesh22)
+for arch in @SERVED@:
+    for i, lg in enumerate(serve(arch, True)):
+        out[f"serve/{arch}/placed/{i}"] = lg
+    if rank == 0:
+        devs = np.empty(4, dtype=object)
+        devs[:] = [torch.device("cpu")] * 4
+        S.set_activation_policy(Mesh(devs.reshape(2, 2), ("data", "model")))
+        for i, lg in enumerate(serve(arch, False)):
+            out[f"serve/{arch}/plain/{i}"] = lg
+        S.set_activation_policy(mesh22)
 
 # checkpoints between meshes, and reshard
 cfg, params, _ = tree_of("qwen3-0.6b")
@@ -406,8 +442,9 @@ def _torchrun(args, **kw):
 
 def _subst(script):
     """``script`` with its ``@NAME@`` constants filled in."""
-    for name, v in (("ARCHS", ARCHS), ("WIDE", WIDE),
-                    ("WATCH", sorted({*SPLIT, *SPLIT_MLA})),
+    for name, v in (("ARCHS", ARCHS), ("WIDE", WIDE), ("SERVED", SERVED),
+                    ("SSM", SSM),
+                    ("WATCH", sorted({*SPLIT_SSM, *SPLIT_MLA})),
                     ("D_MODEL", MOE["d_model"]),
                     ("D_FF", MOE["d_ff"]), ("N_EXPERTS", MOE["n_experts"]),
                     ("K", MOE["k"]), ("S", S), ("B", B)):
@@ -498,6 +535,25 @@ def test_sharded_step_equals_one_device_and_the_reference(arch, runs):
         assert errs[worst] <= F32_GRAD, (worst, errs[worst])
 
 
+@pytest.mark.parametrize("arch", SSM)
+def test_packed_weight_path_step_equals_one_device(arch, runs):
+    """The SSM cases' step with every packed product by the weight path
+    (``sharding.packed_path`` forced; the step above takes the activation
+    path at these token counts): the loss within 1e-5 and every gradient
+    leaf within 1e-4 of the port's one-device step."""
+    port, one = runs["port"], runs["one"]
+    key = f"weight-path/{arch}"
+    assert rel(port[f"{key}/loss"], one[f"{arch}/loss"]) <= F32_LOSS
+    grads = {k[len(key) + 6:]: v for k, v in port.items()
+             if k.startswith(f"{key}/grad/")}
+    want = {k[len(arch) + 6:]: v for k, v in one.items()
+            if k.startswith(f"{arch}/grad/")}
+    assert grads.keys() == want.keys()
+    errs = {k: rel(grads[k], want[k]) for k in grads}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= F32_GRAD, (worst, errs[worst])
+
+
 def test_split_layers_issue_the_tensor_parallel_collectives(runs):
     """qwen3-0.6b-tp on (2, 2): the products split over the model axis
     (module docstring)."""
@@ -565,12 +621,40 @@ def test_mla_heads_split_over_the_model_axis(runs):
             name, whole, part)
 
 
-def test_placed_mla_prefill_and_decode_equal_the_plain_ones(runs):
-    port = runs["port"]
+def _placed_serving_equals_the_plain(port, arch):
     for i in range(3):
-        got, want = port[f"mla/placed/{i}"], port[f"mla/plain/{i}"]
+        got = port[f"serve/{arch}/placed/{i}"]
+        want = port[f"serve/{arch}/plain/{i}"]
         assert got.shape == want.shape and np.isfinite(got).all()
-        assert rel(got, want) <= F32_LOSS, (i, rel(got, want))
+        assert rel(got, want) <= F32_LOSS, (arch, i, rel(got, want))
+
+
+def test_placed_mla_prefill_and_decode_equal_the_plain_ones(runs):
+    _placed_serving_equals_the_plain(runs["port"], "deepseek-v3-671b-tp")
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_placed_ssm_prefill_and_decode_equal_the_plain_ones(arch, runs):
+    """xlstm-125m-tp and zamba2-2.7b-tp on (2, 2): the mLSTM and mamba2
+    states on their heads' shards, the conv windows, the sLSTM states and
+    the shared block's KV cache carried through a prefill and two decode
+    steps, each step's logits within 1e-5 of one device's."""
+    _placed_serving_equals_the_plain(runs["port"], arch)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_heads_split_over_the_model_axis(arch, runs):
+    """The SSM cases on (2, 2): mLSTM's ``w_up`` (packed ``[xi | gate]``),
+    ``wq``/``wk``/``wv`` and ``w_down``, mamba2's ``out_proj`` and the
+    shared block's projections keep half their model-axis dim on each card
+    where their layer runs (the packed ``w_up`` then goes whole or not by
+    ``sharding.packed_path``)."""
+    shards = runs["port"][f"{arch}/shards"]
+    assert {r[0] for r in shards} == SPLIT_SHOWN[arch]
+    for name, whole, part in shards:
+        d = SPLIT_SSM[name]
+        assert part[d] == whole[d] // 2 and part[1 - d] == whole[1 - d], (
+            name, whole, part)
 
 
 @pytest.mark.parametrize("n_experts", [64, 256])
