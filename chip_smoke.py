@@ -212,7 +212,9 @@ Phases:
       level-format cells through the engine, each equal to the numpy
       oracle, cycles under every simulator.HW_PRESETS entry; (2) the LM
       dry-run on meta tensors (no device) for qwen3-0.6b's four shapes and
-      deepseek-v3-671b x train_4k on both production meshes, and
+      deepseek-v3-671b x train_4k on both production meshes,
+      gemma-2b x train_4k and the decode_32k cells of llama3.2-3b,
+      gemma-2b and deepseek-v3-671b on (16, 16) (``W_READ_CELLS``), and
       xlstm-125m x train_4k and zamba2-2.7b x train_4k on both and
       zamba2-2.7b x decode_32k on (16, 16) in three host processes of
       their own (``--w-ssm``, read at the end of (x)): FLOPs, the
@@ -258,6 +260,17 @@ Phases:
       expert-parallel shards and the tokens move to them), its
       collectives must equal ``count_collectives`` of the same step and
       mesh call for call and byte for byte, each card's peak printed;
+      then gemma-2b at 4 of 18 layers at full width (8 heads and one KV
+      head of 256, d_ff 16,384, vocabulary 256,000 tied), float32: one
+      step on (4, 32) within 1e-5 (loss) and 1e-4 (gradients) of the
+      plain step, a counted train step (AdamW) with no all-gather of a
+      (tokens, vocabulary) shape (the loss is vocab-parallel) and its
+      collectives equal to ``count_collectives``, and a placed prefill of
+      (4, 32) into caches of 4096 rows and two decode steps within 1e-5
+      of the plain ones, every cache back on its placements after each
+      step (the decode steps read the MQA cache on its own sequence
+      shards); on a mesh of one, where none of that splits, gemma-2b is
+      left out;
       (3) deepseek-v3-671b at 2 of 61 layers at full width (one dense
       layer with its MLA and d_ff 18,432, one MoE layer of 256 experts,
       top-8, and its shared expert; 13.9e9 parameters, 56 GB in
@@ -266,8 +279,12 @@ Phases:
       a card, each card drawing the whole tree and keeping its shards
       leaf by leaf), every gradient leaf finite, each card's peak
       printed; then, the cards released, the plain forward in a process
-      of its own (``--x3-plain``) on the last card, whose loss the
-      placed step's must equal within 1e-5; on fewer cards the plain
+      of its own (``--x3-plain --serve``) on the last card, whose loss
+      the placed step's must equal within 1e-5, and whose prefill of (4,
+      32) into latent caches of 4096 rows and two decode steps the placed
+      ones (the decode steps reading the caches on their own sequence
+      shards, in the absorbed form) must equal within 1e-5, every cache
+      back on its placements after each step; on fewer cards the plain
       forward alone (a plain step's gradients do not fit beside its
       parameters), on a one-card host run right after (a), before this
       process holds the earlier phases' tensors, and reported in (x);
@@ -431,6 +448,11 @@ GAT_ORDER = {"T": ("i", "j", "f"), "A": ("i", "j", "g")}
 # (w): the dry-run's SAM cells (16 level-format cells at 48^3 take about
 # 20 s of simulator cycles on the host) and the examples
 X_BATCH, X_SEQ, X_STEPS = 8, 256, 3    # (x)(2)'s qwen3-0.6b run
+# (x)(2)'s gemma-2b (4 of its 18 layers) and (x)(3)'s deepseek-v3-671b
+# serving: a prefill of (4, X_PROMPT) into caches of X_CACHE rows, then
+# two decode steps (the decode steps read the caches on their own
+# sequence shards on four cards)
+X2_GEMMA_LAYERS, X_PROMPT, X_CACHE = 4, 32, 4096
 # (x)(4): xlstm-125m placed against plain. The plain model alone moves
 # further than (2)'s tolerances when only its row-parallel products are
 # summed as a model axis of 2 sums them (tools/reassociation_noise.py,
@@ -3636,6 +3658,8 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         f"{x_out['plain'][1]:.1f} s")
     x_moon = json.loads(pathlib.Path(x_tmp, "moonshot.json").read_text())
     x_tp = json.loads(pathlib.Path(x_tmp, "qwen3.json").read_text())
+    x_gemma = (json.loads(pathlib.Path(x_tmp, "gemma.json").read_text())
+               if x_mp > 1 else None)
     shutil.rmtree(x_tmp, ignore_errors=True)
     # the collectives the cards issued against the dry-run's count of the
     # same step on the same mesh (a fake process group, meta tensors)
@@ -3702,6 +3726,12 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
     if moon_got != moon_dry or x_moon["bytes"] != moon_want.get("bytes"):
         raise AssertionError(f"(x)(2) moonshot's collectives on the cards "
                              f"{moon_got} against the dry-run's {moon_want}")
+    if x_gemma is None:
+        gemma_want = None
+        log("[x] (2) gemma-2b left out on a mesh of one: its vocabulary and "
+            "cache are split over no model axis there")
+    else:
+        gemma_want = x2_gemma_checks(x_gemma)
     x_deep = phase_x3(n_gpus, x_env, torchrun)
     x_ssm = phase_x4(n_gpus, x_env, torchrun)
     workloads["lanes and placement (x)"] = {
@@ -3709,10 +3739,59 @@ def phase_x(x_m, x_d2, workloads, per_phase) -> None:
         "lanes": x_runs, "qwen3_sharded": x_sharded, "qwen3_plain": x_plain,
         "qwen3_loss_rel_errs": x_errs, "moonshot": x_moon,
         "qwen3_counted": x_tp, "qwen3_dryrun": x_want,
-        "moonshot_dryrun": moon_want, "deepseek": x_deep, "ssm": x_ssm,
+        "moonshot_dryrun": moon_want, "gemma": x_gemma,
+        "gemma_dryrun": gemma_want, "deepseek": x_deep, "ssm": x_ssm,
         "cards": n_gpus, "model_parallel": x_mp}
     log(f"[x] phase {time.perf_counter() - x_start:.1f} s")
 
+
+
+def x2_gemma_checks(rec) -> dict:
+    """(x)(2)'s gemma-2b checks on the ranks' record (``x2_rank``): the
+    placed step within 1e-5 (loss) and 1e-4 (gradients) of the plain one,
+    no all-gather of a (tokens, vocabulary) shape (the loss is
+    vocab-parallel), the counted train step's collectives equal to
+    ``launch.dryrun.count_collectives`` of the same step and mesh, the
+    placed prefill and decode logits within 1e-5 of the plain ones and
+    every cache back on its placements after each step. Returns the
+    dry-run's count."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cfg, mesh = x2_gemma_config(), tuple(rec["mesh"])
+    tokens, vocab = (4 * 32, 4 * 32 // mesh[0]), (cfg.vocab,
+                                                  cfg.vocab // mesh[1])
+    rows = {t * v * b for t in tokens for v in vocab for b in (2, 4)}
+    vocab_gathers = [r for r in rec["records"]
+                     if r[0] == "all-gather" and r[3] in rows]
+    t0 = time.perf_counter()
+    want = dryrun.count_collectives(cfg, ShapeConfig("x2", 32, 4, "train"),
+                                    "dots", 1, False, mesh,
+                                    ("data", "model"))
+    got = {k: (v["calls"], v["bytes"]) for k, v in rec["by_axis"].items()}
+    dry = {k: (v["calls"], v["bytes"])
+           for k, v in want.get("by_axis", {}).items()}
+    log(f"[x] (2) gemma-2b, {X2_GEMMA_LAYERS} of 18 layers at full width "
+        f"(8 heads and one KV head of 256, d_ff 16,384, vocabulary "
+        f"256,000 tied), float32, on {mesh}: one step on (4, 32), loss "
+        f"{rec['loss']:.6f}, rel err {rec['loss_err']:.3e} against the "
+        f"plain step (1e-5), the largest gradient leaf's error over its "
+        f"largest magnitude {rec['grad_err']:.3e} (1e-4); all-gathers of a "
+        f"(tokens, vocabulary) shape {vocab_gathers}; the counted train "
+        f"step's collectives on the cards {json.dumps(got)}, wire bytes a "
+        f"card {rec['bytes']}; the dry-run's count {json.dumps(dry)}, wire "
+        f"bytes {want.get('bytes')} ({time.perf_counter() - t0:.1f} s); a "
+        f"prefill (4, {X_PROMPT}) into caches of {X_CACHE} rows and two "
+        f"decode steps: logits rel errs "
+        f"{[f'{e:.3e}' for e in rec['serve_errs']]} against the plain ones "
+        f"(1e-5), caches on their own placements after each step "
+        f"{rec['kept']}")
+    if (rec["loss_err"] > 1e-5 or rec["grad_err"] > 1e-4 or vocab_gathers
+            or got != dry or rec["bytes"] != want.get("bytes")
+            or max(rec["serve_errs"]) > 1e-5 or not all(rec["kept"])):
+        raise AssertionError(f"(x)(2) gemma-2b {rec} against the dry-run's "
+                             f"{want}")
+    return want
 
 
 def rules_local_experts(cfg, mesh_shape) -> int:
@@ -3767,11 +3846,14 @@ def phase_x3(n_gpus, env, torchrun) -> dict:
                 f"(x)(3) ranks exited {proc.returncode} (output in "
                 f"chiprun_out/x3_ranks.log): {proc.stderr[-3000:]}")
         out.update(json.loads(pathlib.Path(tmp, "deepseek.json").read_text()))
+        with np.load(pathlib.Path(tmp, "deepseek_serve.npz")) as z:
+            served = [z[f"arr_{i}"] for i in range(len(z.files))]
         shutil.rmtree(tmp, ignore_errors=True)
         out["ranks_s"] = time.perf_counter() - t0
     # the plain forward: run early on a one-card host (``main``), else now
     # on the last card, which this process does not use
-    out.update(X3_PLAIN[0] if X3_PLAIN else x3_plain_run(n_gpus - 1))
+    out.update(X3_PLAIN[0] if X3_PLAIN
+               else x3_plain_run(n_gpus - 1, serve=n_gpus >= 4))
     plain = out["plain_loss"]
     if not np.isfinite(plain):
         raise AssertionError(f"(x)(3) plain loss {plain}")
@@ -3801,6 +3883,19 @@ def phase_x3(n_gpus, env, torchrun) -> dict:
             or local != {(1, want_e, cfg.d_model, cfg.moe_d_ff),
                          (1, want_e, cfg.moe_d_ff, cfg.d_model)}):
         raise AssertionError(f"(x)(3) deepseek {out}")
+    plain_served = out.pop("plain_serve")
+    out["serve_errs"] = [float(np.abs(a - b).max() / np.abs(b).max())
+                         for a, b in zip(served, plain_served)]
+    log(f"[x] (3) deepseek-v3-671b's placed prefill (4, {X_PROMPT}) into "
+        f"latent caches of {X_CACHE} rows and two decode steps on "
+        f"{out['mesh']} (the decode steps read the caches on their own "
+        f"sequence shards, absorbed): logits rel errs "
+        f"{[f'{e:.3e}' for e in out['serve_errs']]} against the plain "
+        f"forward's (1e-5); caches on their own placements after each step "
+        f"{out['kept']}")
+    if (len(out["serve_errs"]) != 3 or max(out["serve_errs"]) > 1e-5
+            or not all(out["kept"])):
+        raise AssertionError(f"(x)(3) deepseek serving {out}")
     return out
 
 
@@ -3819,8 +3914,8 @@ def phase_x4(n_gpus, env, torchrun) -> dict:
     """(x)(4): the SSM and hybrid families placed. ``python -m
     torch.distributed.run ... -m repro_torch.launch.train --arch
     xlstm-125m`` (whole, (X_BATCH, X_SEQ), X_STEPS steps) beside a plain
-    run, then this script with ``--x4-ranks`` under the same launch
-    (``x4_rank``); the counted steps held to ``count_collectives`` of the
+    run and this script with ``--x4-ranks`` under the same launch
+    (``x4_rank``), the three at once; the counted steps held to ``count_collectives`` of the
     same step and mesh, zamba2's step to the plain one, the placed
     prefills and decode steps to the plain ones."""
     import dataclasses
@@ -3847,15 +3942,13 @@ def phase_x4(n_gpus, env, torchrun) -> dict:
         return time.perf_counter(), subprocess.Popen(
             cmds[name], cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)
-    # on one card the ranks (zamba2's step and its plain twin) wait for
-    # the two xlstm-125m runs
-    later = () if n_gpus >= 4 else ("ranks",)
-    procs = {name: start(name) for name in cmds if name not in later}
+    # the three at once, on one card too: their peaks (about 7.5 GB for
+    # each xlstm-125m run, 23 GB for the ranks' zamba2 step, printed
+    # below) fit one card's 80 GB together
+    procs = {name: start(name) for name in cmds}
     outs = {}
     try:
         for name in cmds:
-            if name not in procs:
-                procs[name] = start(name)
             started, proc = procs[name]
             out, err = proc.communicate(timeout=600)
             outs[name] = (out, time.perf_counter() - started)
@@ -3980,7 +4073,10 @@ def x2_rank(out_dir: str, model_parallel: int) -> int:
     (4, 32) batch placed, the loss and the gradients of one step (remat
     "dots"); process 0 takes the plain step on its card from the same
     parameters and batch (the MoE dispatch in as many groups) and writes
-    both errors to ``moonshot.json``."""
+    both errors to ``moonshot.json``. Then, where the model axis is over
+    one card, gemma-2b (``x2_gemma_config``): a step, a placed prefill
+    and two decode steps and a counted train step, against the plain ones
+    on process 0's card, into ``gemma.json``."""
     import dataclasses
     import gc
 
@@ -4099,10 +4195,117 @@ def x2_rank(out_dir: str, model_parallel: int) -> int:
             moon, mesh=list(mesh.devices.shape), peaks=[p[0] for p in peaks],
             before=[p[1] for p in peaks], shards=[p[2] for p in peaks],
             bytes=summary["bytes"], by_axis=summary["by_axis"])))
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gemma-2b at full width (4 of 18 layers), float32: the vocab-parallel
+    # loss over its 256,000 columns, and its MQA cache read on its own
+    # sequence shards. The loss and gradients of one step, a placed
+    # prefill and two decode steps, then a counted train step (AdamW);
+    # process 0 takes the plain ones on its card. A model axis of one
+    # splits neither, so there it is left out
+    if model_parallel == 1:
+        sharding.set_activation_policy(None)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    cfg = x2_gemma_config()
+    params = lm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = batch_for_step(cfg, ShapeConfig("x2", 32, 4, "train"), 0)
+    placed = sharding.place(params, mesh)
+    pbatch = sharding.place(batch, mesh,
+                            sharding.batch_shardings(mesh, batch))
+    loss, grads = value_and_grad(remat_loss_fn(cfg, "dots"), placed, pbatch)
+    grads = lm.tree_leaves(sharding.full_tensors(grads))
+    loss = float(sharding.full_tensors(loss))
+    toks = serve_tokens(cfg)
+    served, kept = serve_logits(cfg, placed, toks, mesh)
+    state = init_opt_state(opt, placed)
+    counter = CollectiveCounter(mesh.device_mesh)
+    with counter:
+        make_train_step(cfg, opt, remat="dots")(placed, state, pbatch)
+    torch.cuda.synchronize()
+    del state
+    if dist.get_rank() == 0:
+        devs = np.empty(mesh.size, dtype=object)
+        devs[:] = [torch.device("cuda", 0)] * mesh.size
+        sharding.set_activation_policy(
+            Mesh(devs.reshape(mesh.devices.shape), mesh.axis_names))
+        want_loss, want = value_and_grad(remat_loss_fn(cfg, "dots"), params,
+                                         batch)
+        grad_err = max(float((a - b).abs().max()
+                             / max(float(b.abs().max()), 1e-30))
+                       for a, b in zip(grads, lm.tree_leaves(want)))
+        del want
+        plain, _ = serve_logits(cfg, params, toks)
+        summary = counter.summary()
+        (out_dir / "gemma.json").write_text(json.dumps({
+            "loss": loss, "loss_err": abs(loss - float(want_loss))
+            / abs(float(want_loss)), "grad_err": grad_err,
+            "serve_errs": [float(np.abs(a - b).max() / np.abs(b).max())
+                           for a, b in zip(served, plain)],
+            "kept": kept, "mesh": list(mesh.devices.shape),
+            "bytes": summary["bytes"], "by_axis": summary["by_axis"],
+            "records": counter.records}))
+        sharding.set_activation_policy(mesh)
     sharding.set_activation_policy(None)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def x2_gemma_config():
+    """(x)(2)'s gemma-2b: 4 of its 18 layers at full width (d_model 2048,
+    8 heads and one KV head of 256, d_ff 16,384, vocabulary 256,000, tied
+    embedding), float32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gemma-2b"),
+                               n_layers=X2_GEMMA_LAYERS,
+                               compute_dtype="float32")
+
+
+def serve_tokens(cfg):
+    """(x)'s serving tokens: (4, X_PROMPT + 2) ids on the card, from
+    SEED."""
+    import torch
+    return torch.tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (4, X_PROMPT + 2)), device="cuda")
+
+
+def serve_logits(cfg, params, toks, mesh=None):
+    """A prefill of ``toks[:, :X_PROMPT]`` into float32 caches of X_CACHE
+    rows and two decode steps of one token, without gradients: each
+    step's last logits as numpy (B, V), and, placed on ``mesh`` (the
+    caches by the rules' ``cache_shardings``), whether every cache leaf
+    came back on the placements it came with after each step."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as lm
+    caches = lm.init_caches(cfg, toks.shape[0], X_CACHE, dtype=torch.float32,
+                            device=toks.device)
+    if mesh is not None:
+        caches = sharding.place(caches, mesh,
+                                sharding.cache_shardings(mesh, caches))
+        came = [t.placements for t in lm.tree_leaves(caches)]
+    out, kept = [], []
+    with torch.no_grad():
+        for lo, hi in ((0, X_PROMPT), (X_PROMPT, X_PROMPT + 1),
+                       (X_PROMPT + 1, X_PROMPT + 2)):
+            b = {"tokens": toks[:, lo:hi]}
+            if mesh is not None:
+                b = sharding.place(b, mesh, sharding.batch_shardings(mesh, b))
+            lg, caches = lm.forward(cfg, params, b, caches)
+            out.append(sharding.full_tensors(lg[:, -1]).float().cpu()
+                       .numpy())
+            if mesh is not None:
+                kept.append([t.placements for t in lm.tree_leaves(caches)]
+                            == came)
+    return out, kept
 
 
 def x3_rank(out_dir: str) -> int:
@@ -4171,14 +4374,22 @@ def x3_rank(out_dir: str) -> int:
     finite = all(bool(torch.isfinite(g.to_local()).all())
                  for g in lm.tree_leaves(grads))
     loss = float(sharding.full_tensors(loss))
+    n_leaves = len(lm.tree_leaves(grads))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a placed prefill and two decode steps: the latent caches read on
+    # their own sequence shards at the decode steps
+    served, kept = serve_logits(cfg, params, serve_tokens(cfg), mesh)
     got = [None] * dist.get_world_size()
     dist.all_gather_object(got, (peak, before, finite, local))
     if dist.get_rank() == 0:
+        np.savez(pathlib.Path(out_dir) / "deepseek_serve.npz", *served)
         (pathlib.Path(out_dir) / "deepseek.json").write_text(json.dumps({
             "mesh": list(mesh.devices.shape), "loss": loss,
             "finite": [g[2] for g in got], "local": [g[3] for g in got],
             "peaks": [g[0] for g in got], "before": [g[1] for g in got],
-            "leaves": len(lm.tree_leaves(grads)), "seconds": seconds}))
+            "leaves": n_leaves, "seconds": seconds, "kept": kept}))
     sharding.set_activation_policy(None)
     dist.barrier()
     dist.destroy_process_group()
@@ -4417,10 +4628,11 @@ def x4_rank(out_dir: str, model_parallel: int) -> int:
     return 0
 
 
-def x3_plain_run(card=None) -> dict:
+def x3_plain_run(card=None, serve=False) -> dict:
     """(x)(3)'s plain forward in a process of its own (``--x3-plain``), on
     ``card`` where given (``CUDA_VISIBLE_DEVICES``), else on ``cuda:0``;
-    returns its record."""
+    returns its record, with ``serve`` also its prefill and decode
+    logits (``plain_serve``)."""
     import os
     import tempfile
 
@@ -4431,19 +4643,26 @@ def x3_plain_run(card=None) -> dict:
         path = pathlib.Path(tmp, "plain.json")
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--x3-plain",
-             str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=600)
+             str(path)] + (["--serve"] if serve else []), cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
         if proc.returncode:
             raise AssertionError(f"(x)(3) plain forward exited "
                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
-        return dict(json.loads(path.read_text()), plain_card=card or 0)
+        out = dict(json.loads(path.read_text()), plain_card=card or 0)
+        if serve:
+            with np.load(str(path) + ".npz") as z:
+                out["plain_serve"] = [z[f"arr_{i}"]
+                                      for i in range(len(z.files))]
+        return out
 
 
-def x3_plain(out_path: str) -> int:
+def x3_plain(out_path: str, serve: bool = False) -> int:
     """(x)(3)'s plain forward on one card (``x3_config``, a (4, 32) batch,
     the MoE dispatch in the groups of a (2, 2) mesh), the parameters drawn
     from the placed step's seed: writes its loss, ms, parameter count,
-    seconds to draw them and peak allocated bytes to ``out_path``."""
+    seconds to draw them and peak allocated bytes to ``out_path``; with
+    ``serve``, the logits of a prefill and two decode steps
+    (``serve_logits``) to ``out_path`` + ``.npz``."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -4469,12 +4688,17 @@ def x3_plain(out_path: str) -> int:
     with torch.no_grad():
         loss = float(lm.loss_fn(cfg, params, batch))
     torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if serve:
+        np.savez(out_path + ".npz",
+                 *serve_logits(cfg, params, serve_tokens(cfg))[0])
     pathlib.Path(out_path).write_text(json.dumps({
         "plain_loss": loss,
-        "plain_forward_ms": (time.perf_counter() - t0) * 1e3,
+        "plain_forward_ms": forward_ms,
         "params": sum(t.numel() for t in lm.tree_leaves(params)),
         "plain_built_s": built_s,
-        "plain_peak": torch.cuda.max_memory_allocated(),
+        "plain_peak": peak,
         "live_before": live}))
     return 0
 
@@ -4616,10 +4840,15 @@ def read_w_ssm() -> list:
     return cells
 
 
+W_READ_CELLS = (("gemma-2b", "train_4k"), ("llama3.2-3b", "decode_32k"),
+                ("gemma-2b", "decode_32k"), ("deepseek-v3-671b", "decode_32k"))
+
+
 def w_lm_counts(out_path: str) -> int:
     """(w)(2) and (3) in a process of their own: the LM dry-run of
     qwen3-0.6b's four shapes and deepseek-v3-671b x train_4k on both
-    production meshes, each placed again for its collective term
+    production meshes and of ``W_READ_CELLS`` on (16, 16), each placed
+    again for its collective term
     (``--all`` counts xlstm-125m's sLSTM scan op by op: minutes on the
     host), and the probe sweep of qwen3-0.6b x train_4k; their records
     and seconds written to ``out_path``."""
@@ -4636,6 +4865,10 @@ def w_lm_counts(out_path: str) -> int:
                         + [("deepseek-v3-671b", "train_4k")]):
         cells += dryrun.main(["--arch", arch, "--shape", shape,
                               "--both-meshes"])
+    # the cells the vocab-parallel loss and the sequence read change, on
+    # (16, 16)
+    for arch, shape in W_READ_CELLS:
+        cells += dryrun.main(["--arch", arch, "--shape", shape])
     lm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     probe = roofline_sweep.main([
@@ -4666,7 +4899,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--x4-ranks"]:
         sys.exit(x4_rank(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--x3-plain"]:
-        sys.exit(x3_plain(sys.argv[2]))
+        sys.exit(x3_plain(sys.argv[2], "--serve" in sys.argv[3:]))
     if sys.argv[1:] == ["--phase-x"]:
         sys.exit(phase_x_alone())
     try:

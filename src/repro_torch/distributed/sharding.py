@@ -50,8 +50,12 @@ keeps the experts of its ``Shard`` on the E axes (``expert_axes``:
 model, and the data axes where E divides them) and the dispatch moves
 the tokens to them, its router and shared experts over the data group
 only. sLSTM's leaves, which the rules replicate but for its recurrent
-``r``, are made whole (``gathered``, as ZeRO-3 does). The activation
-policy (``set_activation_policy``, ``data_group_size``,
+``r``, are made whole (``gathered``, as ZeRO-3 does). The logits keep
+their vocabulary split over the model axis into a vocab-parallel loss,
+and a placed cache keeps its sequence split over it: a decode step reads
+it there (``cache_read_path``), its collectives over the model axis
+issued through ``ModelAxis``. The activation policy
+(``set_activation_policy``, ``data_group_size``,
 ``shard_activation``) is the reference's: ``shard_activation``
 redistributes a DTensor to its fitted spec's placements, and is the
 identity on a plain tensor or without a policy. The model code mixes a
@@ -79,7 +83,8 @@ __all__ = ["data_axes", "path_str", "param_spec", "params_shardings",
            "model_sharded", "model_coordinate",
            "whole_over_model", "reduced", "model_input", "over_model",
            "packed_columns", "packed_ranges", "pick_columns",
-           "packed_path", "packed_product", "split_rows", "sum_over_model",
+           "packed_path", "packed_product", "cache_read_path", "ModelAxis",
+           "split_rows", "sum_over_model",
            "gather_over_model",
            "per_shard_grads",
            "full_tensors",
@@ -407,6 +412,20 @@ def model_coordinate(t) -> Tuple[int, int]:
     return t.device_mesh.get_local_rank(i), t.device_mesh.size(i)
 
 
+def _all_reduce(x, op: str, group_name: str):
+    """``x`` reduced elementwise by ``op`` over one process group."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(x.contiguous(), op, group_name))
+
+
+def _all_gather(x, dim: int, group_name: str, size: int):
+    """The shards ``x`` of one process group of ``size`` concatenated
+    along ``dim`` in rank order."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_gather_into_tensor(
+        x.movedim(dim, 0).contiguous(), size, group_name)).movedim(0, dim)
+
+
 class _SumOverGroup(torch.autograd.Function):
     """The all-reduce (sum) of a local tensor over one process group, whose
     backward is the identity: each shard's partial term receives the whole
@@ -416,8 +435,7 @@ class _SumOverGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group_name):
-        ops = torch.ops._c10d_functional
-        return ops.wait_tensor(ops.all_reduce(x, "sum", group_name))
+        return _all_reduce(x, "sum", group_name)
 
     @staticmethod
     def backward(ctx, grad):
@@ -432,14 +450,11 @@ class _AllSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group_name):
         ctx.group_name = group_name
-        ops = torch.ops._c10d_functional
-        return ops.wait_tensor(ops.all_reduce(x, "sum", group_name))
+        return _all_reduce(x, "sum", group_name)
 
     @staticmethod
     def backward(ctx, grad):
-        ops = torch.ops._c10d_functional
-        return ops.wait_tensor(ops.all_reduce(grad.contiguous(), "sum",
-                                              ctx.group_name)), None
+        return _all_reduce(grad, "sum", ctx.group_name), None
 
 
 class _GatherOverGroup(torch.autograd.Function):
@@ -450,9 +465,7 @@ class _GatherOverGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group_name, size):
         ctx.args = (dim, group_name, size)
-        ops = torch.ops._c10d_functional
-        return ops.wait_tensor(ops.all_gather_into_tensor(
-            x.movedim(dim, 0).contiguous(), size, group_name)).movedim(0, dim)
+        return _all_gather(x, dim, group_name, size)
 
     @staticmethod
     def backward(ctx, grad):
@@ -574,6 +587,56 @@ def packed_path(d_in: int, tokens: int, weight_itemsize: int,
     at a decode step's."""
     return ("weight" if d_in * weight_itemsize <= tokens * act_itemsize
             else "activation")
+
+
+def cache_read_path(cache_bytes: int, step_bytes: int) -> str:
+    """Which way a step reads a placed cache whose sequence is split over
+    the model axis (the rules' ``cache_spec``). ``"sequence"``: each card
+    writes the step's new rows that fall in its own sequence range and
+    scores the step's queries, every head's, against its own rows; the
+    float32 partial results (a head's output, row max and sum) are merged
+    over the model axis by log-sum-exp. ``"cache"``: the cache moves to
+    the heads' placements for the step and back. ``step_bytes`` are what
+    the sequence read moves on one data shard (the step's queries, whole
+    over the heads, and their partial results), ``cache_bytes`` the cache
+    the other path would move there (K and V, or MLA's latents, whole
+    over the model axis). The queries grow with the step's tokens and the
+    cache with its length, so the rule is ``step_bytes < cache_bytes``:
+    the sequence at a decode step, the cache at a prefill that fills an
+    empty cache of its prompt's length."""
+    return "sequence" if step_bytes < cache_bytes else "cache"
+
+
+class ModelAxis:
+    """The collectives a per-shard computation (the function of a
+    ``local_map``) issues over the ``model`` axis of ``device_mesh`` at a
+    decode step: no gradient flows through them (a train step carries no
+    cache). ``rank`` and ``size`` are this process's place on the axis;
+    ``gather(x, dim)`` concatenates the shards along ``dim`` in rank
+    order, ``amax``/``sum`` reduce elementwise, and ``to_owners(x)`` sends
+    ``x[j]`` (a leading dim of ``size``) to rank ``j``, returning at
+    ``[i]`` what rank ``i`` sent here."""
+
+    def __init__(self, device_mesh):
+        i = device_mesh.mesh_dim_names.index("model")
+        self.rank = device_mesh.get_local_rank(i)
+        self.size = device_mesh.size(i)
+        self.group = device_mesh.get_group(i).group_name
+
+    def gather(self, x, dim: int):
+        return _all_gather(x, dim, self.group, self.size)
+
+    def amax(self, x):
+        return _all_reduce(x, "max", self.group)
+
+    def sum(self, x):
+        return _all_reduce(x, "sum", self.group)
+
+    def to_owners(self, x):
+        ops = torch.ops._c10d_functional
+        n = [1] * self.size
+        return ops.wait_tensor(ops.all_to_all_single(x.contiguous(), n, n,
+                                                     self.group))
 
 
 def split_rows(t, split: bool) -> list:

@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..core import coord_ops as co
@@ -171,39 +171,99 @@ def init_embedding(gen: Optional[torch.Generator], vocab: int, d_model: int,
     return (normal(gen, (vocab, d_model)) * 0.02).to(dtype)
 
 
-def _whole_last_dim(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor ``x`` with its last dim whole on every shard (the label
-    pick's gather has no rule over a sharded vocabulary); a plain tensor
-    as it is."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not isinstance(x, DTensor):
-        return x
-    last = x.ndim - 1
-    pl = [Replicate() if isinstance(p, Shard) and p.dim in (-1, last) else p
-          for p in x.placements]
-    return x.redistribute(x.device_mesh, pl)
-
-
 def _replicated(x: torch.Tensor) -> torch.Tensor:
     """A DTensor ``x`` whole on every process; a plain tensor as it is."""
-    from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor):
         return x
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Megatron's vocab-parallel cross entropy on one card's columns of the
+    logits, the vocabulary range ``[v0, v0 + V/M)`` of (..., V/M) logits
+    and the labels (...): the float32 row max all-reduced with MAX over
+    the model axis (``axis``, ``sharding.ModelAxis``; it only steadies the
+    sum, so it takes no gradient), then the sum of ``exp(l - m)`` and the
+    label's logit (0 outside this range) stacked in one SUM all-reduce;
+    the token losses ``m + log(sum) - ll``, the same on every card of the
+    axis. The backward is ``(softmax - onehot) · g`` on each card's own
+    columns, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, axis):
+        x = logits.float()
+        m = axis.amax(torch.amax(x, dim=-1))
+        j = labels.long() - v0
+        hit = (j >= 0) & (j < x.shape[-1])
+        j = torch.where(hit, j, torch.zeros_like(j))
+        picked = torch.where(hit, torch.gather(x, -1, j[..., None])[..., 0],
+                             torch.zeros_like(m))
+        sums = axis.sum(torch.stack(
+            [torch.sum(torch.exp(x - m[..., None]), dim=-1), picked]))
+        logz = m + torch.log(sums[0])
+        ctx.save_for_backward(logits, logz, j, hit)
+        return logz - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, j, hit = ctx.saved_tensors
+        p = torch.exp(logits.float() - logz[..., None])
+        p = p.scatter_add(-1, j[..., None], -hit[..., None].to(p.dtype))
+        return (p * g[..., None]).to(logits.dtype), None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """The token losses (..., a DTensor split as ``logits``' leading dims
+    and whole over the model axis) of DTensor ``logits`` whose last dim is
+    split over the model axis, by ``_VocabParallelNLL`` on each card's own
+    vocabulary range through ``local_map``. ``labels`` (a DTensor, or a
+    plain tensor every process holds whole) go to the rows' placements."""
+    mesh = logits.device_mesh
+    axis = shd.ModelAxis(mesh)
+    v0 = axis.rank * (logits.shape[-1] // axis.size)
+    rows = tuple(shd.over_model(logits, Replicate()))
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, rows)
+    return local_map(
+        lambda lg, lb: _VocabParallelNLL.apply(lg, lb, v0, axis),
+        out_placements=(rows,), in_placements=(tuple(logits.placements),
+                                               rows),
+        in_grad_placements=(tuple(logits.placements), rows),
+        device_mesh=mesh)(logits, labels)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in float32; with ``mask``, the mean over
-    the masked tokens (``sum(mask)`` at least 1)."""
-    # placed, the vocabulary-parallel logits are gathered into whole rows
-    # once, for the normalizer and the label pick alike
-    logits = _whole_last_dim(logits.float())
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    # placed, the token losses are summed whole on every process, in one
-    # device's order, so a loss does not depend on the mesh
-    nll = _replicated(logz - ll)
+    the masked tokens (``sum(mask)`` at least 1).
+
+    Placed with the vocabulary split over the model axis (the rules'
+    ``logits`` activation), the normalizer and the label pick run on each
+    card's own vocabulary range (``_vocab_parallel_nll``: a MAX and a SUM
+    all-reduce of one float32 a token, no gather of the logits' rows), so
+    the loss depends on the model axis's size by the order of the
+    vocabulary sum, about 1e-7 of itself in float32. The token losses are
+    then summed whole on every process, in one device's order. Logits
+    whole over the model axis (a vocabulary the rules leave whole) take
+    the whole rows as on one device; logits whose vocabulary is split over
+    another axis raise ``ValueError``."""
+    if shd.model_sharded(logits, logits.ndim - 1):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        if isinstance(logits, DTensor) and any(
+                p.is_shard() and p.dim in (-1, logits.ndim - 1)
+                and logits.device_mesh.size(i) > 1
+                for i, p in enumerate(logits.placements)):
+            raise ValueError(
+                f"cross_entropy: logits split on their vocabulary over a "
+                f"mesh axis other than the model axis {logits.placements}")
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = logz - ll
+    nll = _replicated(nll)
     if mask is None:
         return torch.mean(nll)
     mask = _replicated(mask.float())

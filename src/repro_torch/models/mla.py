@@ -19,16 +19,18 @@ import functools
 from typing import Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..core import coord_ops as co
 from ..distributed import sharding as shd
-from .attention import NEG_INF, _write_tokens, check_cache_room
+from .attention import (NEG_INF, _rows_of, check_cache_room,
+                        merge_over_axis, write_rows)
 from .common import (apply_rope, dense_init, device_of, init_rms, rms_norm,
                      rope_angles)
 
-__all__ = ["init_mla", "mla_attention", "init_mla_cache"]
+__all__ = ["init_mla", "mla_attention", "init_mla_cache", "read_path",
+           "mla_sequence_read"]
 
 
 def init_mla(gen: Optional[torch.Generator], d_model: int, n_heads: int, *,
@@ -68,12 +70,17 @@ def mla_attention(p: dict, x: torch.Tensor, *, n_heads: int,
     values run on them per shard through ``local_map`` (the shared RoPE
     key, read by every shard's heads, gets a ``Partial`` gradient), and
     the row-parallel ``wo`` leaves a float32 ``Partial`` sum over the
-    model axis for the caller to reduce. A placed cache is made whole over
-    the model axis for the step (an all-gather of its sequence shards),
-    each card writes its own rows, and the cache goes back on its own
-    placements (a local slice). Where the model axis does not divide the
-    heads, or the three are not split, the layer's weights are made whole
-    over it first."""
+    model axis for the caller to reduce. Where the model axis does not
+    divide the heads, or the three are not split, the layer's weights are
+    made whole over it first.
+
+    A placed cache (its sequence split over the model axis, the rules'
+    ``cache_spec``) is read on its own sequence shards where that moves
+    fewer bytes (``sharding.cache_read_path``: a decode step), in the
+    absorbed form (``mla_sequence_read``); otherwise (a prefill that fills
+    the cache) it is made whole over the model axis for the step (an
+    all-gather of its sequence shards), each card writes its own rows, and
+    it goes back on its own placements (a local slice)."""
     s = x.shape[1]
     cd = compute_dtype
     x = x.to(cd)
@@ -91,17 +98,24 @@ def mla_attention(p: dict, x: torch.Tensor, *, n_heads: int,
     k_rope = k_rope[..., None, :]  # single shared rope key head
 
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
+    seq = _sequence_read_applies(x, cache, n_heads, kv_lora_rank, rope_dim)
     if cache is None:
         pos, q_pos = None, steps[None, :]
         new_cache = None
     else:
         pos = cache["pos"]
-        check_cache_room(pos, s, cache["c_kv"].shape[1])
+        if not seq:
+            check_cache_room(pos, s, cache["c_kv"].shape[1])
         q_pos = pos[:, None] + steps[None, :]
 
     cos, sin = rope_angles(q_pos, rope_dim, rope_theta)
     k_rope = apply_rope(k_rope, cos, sin)
 
+    if seq:
+        return _mla_sequence(
+            p, q_lat, c_kv, k_rope[..., 0, :], cache, split=split,
+            qk_nope_dim=qk_nope_dim, v_head_dim=v_head_dim,
+            rope_dim=rope_dim, rope_theta=rope_theta, cd=cd)
     if cache is not None:
         c_kv_all = _write(cache["c_kv"], c_kv, pos)
         k_rope_all = _write(cache["k_rope"], k_rope[..., 0, :], pos)
@@ -142,15 +156,15 @@ _HEAD_SPLIT = ("wq_b", "wkv_b", "wo")
 
 def _write(arr, new, pos):
     """``arr`` with ``new`` (B, s, ...) written at the rows' positions
-    ``pos`` (``attention._write_tokens``). On DTensors each card writes its
+    ``pos`` (``attention.write_rows``). On DTensors each card writes its
     own rows of the cache made whole on its other dims (an all-gather of
     the sequence shards over the model axis)."""
     if not isinstance(arr, DTensor):
-        return _write_tokens(arr, new, pos)
+        return write_rows(arr, new, pos)
     mesh = arr.device_mesh
     rows = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
                  for p in arr.placements)
-    return local_map(_write_tokens, out_placements=(rows,),
+    return local_map(write_rows, out_placements=(rows,),
                      in_placements=(rows,) * 3, device_mesh=mesh)(
         *(t.redistribute(mesh, rows) for t in (arr, new, pos)))
 
@@ -199,6 +213,131 @@ def _core(q, kv_b, k_rope, pos=None, *, qk_nope_dim: int, v_head_dim: int,
     probs = torch.softmax(scores, dim=-1).to(cd)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v)
     return out.reshape(b, -1, heads * v_head_dim)
+
+
+# -- the sequence read: a placed latent cache read on its own shards ---------
+
+_MLA_CACHE = ("c_kv", "k_rope", "pos")
+
+
+def read_path(batch: int, tokens: int, cache_len: int, n_heads: int,
+              kv_lora_rank: int, rope_dim: int, cache_dtype) -> str:
+    """``sharding.cache_read_path`` for a step of ``tokens`` new tokens
+    of ``batch`` rows against a latent cache of ``cache_len`` rows: the
+    absorbed sequence read moves each query head's folded and RoPE queries
+    and its partial latent context with its max and sum, in float32; the
+    cache path the latents (``cache_dtype``)."""
+    step = batch * tokens * n_heads * (2 * kv_lora_rank + rope_dim + 2) * 4
+    latents = batch * cache_len * (kv_lora_rank + rope_dim) \
+        * cache_dtype.itemsize
+    return shd.cache_read_path(latents, step)
+
+
+def _sequence_read_applies(x, cache, n_heads: int, kv_lora_rank: int,
+                           rope_dim: int) -> bool:
+    """Whether this step reads the latent ``cache`` on its own sequence
+    shards (``_mla_sequence``): a placed cache whose sequence is split over
+    the model axis, where ``read_path`` picks the sequence read."""
+    if (cache is None or not isinstance(x, DTensor)
+            or not shd.model_sharded(cache["c_kv"], 1)):
+        return False
+    b, rows = cache["c_kv"].shape[:2]
+    return read_path(b, x.shape[1], rows, n_heads, kv_lora_rank, rope_dim,
+                     cache["c_kv"].dtype) == "sequence"
+
+
+def _mla_sequence(p, q_lat, c_kv, k_rope, cache, *, split, qk_nope_dim,
+                  v_head_dim, rope_dim, rope_theta, cd):
+    """``mla_attention`` on a placed latent cache read on its own sequence
+    shards: the column-parallel ``wq_b`` gives each card its own heads'
+    queries, ``mla_sequence_read`` runs on each card through ``local_map``
+    with its columns of ``wkv_b``, and the row-parallel ``wo`` leaves a
+    float32 ``Partial`` (heads not split: every head on every card, the
+    weights whole). ``c_kv`` and the rotated ``k_rope`` (B, s, rope) are
+    the step's new latents, whole over the model axis. Returns (the
+    layer's output, the new cache on the placements it came with)."""
+    q = q_lat @ p["wq_b"].to(cd)
+    held = [cache[n] for n in _MLA_CACHE]
+    for t in held:
+        _rows_of(t, q)
+    args = [q, c_kv, k_rope, *held, p["wkv_b"]]
+    read = functools.partial(
+        mla_sequence_read, axis=shd.ModelAxis(q.device_mesh), owners=split,
+        qk_nope_dim=qk_nope_dim, v_head_dim=v_head_dim, rope_dim=rope_dim,
+        rope_theta=rope_theta, cd=cd)
+    out_pl = tuple(shd.over_model(q, Shard(2) if split else Replicate()))
+    out, *new = local_map(
+        read, out_placements=(out_pl, *(tuple(t.placements) for t in held)),
+        in_placements=tuple(tuple(t.placements) for t in args),
+        device_mesh=q.device_mesh)(*args)
+    new_cache = dict(zip(_MLA_CACHE, new))
+    if split:
+        return out.float() @ p["wo"].to(cd).float(), new_cache
+    return out @ p["wo"].to(cd), new_cache
+
+
+def _latent_partials(scores, values, mask):
+    """Masked float32 ``scores`` (B, H, s, S) of some rows of the latents
+    ``values`` (B, S, d): ``o = Σ exp(score - m) · values`` (B, s, H, d),
+    the row max ``m`` and sum ``l`` (B, s, H)."""
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    m = torch.amax(scores, dim=-1)
+    e = torch.exp(scores - m[..., None])
+    o = torch.einsum("bhqs,bsd->bqhd", e, values)
+    return o, m.transpose(1, 2), torch.sum(e, dim=-1).transpose(1, 2)
+
+
+def mla_sequence_read(q, c_new, kr_new, c_cache, kr_cache, pos, w, *, axis,
+                      owners: bool, qk_nope_dim: int, v_head_dim: int,
+                      rope_dim: int, rope_theta: float, cd):
+    """One card's share of a step's MLA on its own rows of a latent cache
+    whose sequence is split over the model axis (``axis``, a
+    ``sharding.ModelAxis``; rank r of M holds the global rows [r·S/M,
+    (r+1)·S/M)). ``q`` (B, s, heads x qk_head) are this card's heads'
+    queries (every head without ``owners``), ``w`` its columns of
+    ``wkv_b`` (kv_lora_rank, heads x (nope + v)), ``c_new`` and the
+    rotated ``kr_new`` the step's new latents, whole. The new rows whose
+    positions fall in this card's range are written (the rest dropped: no
+    collective). The read is the absorbed form (DeepSeek-V2 §2.1.2), in
+    float32: each card folds ``wkv_b``'s key half into its heads' queries,
+    ``q_nope · W_nope,hᵀ``, the folded queries and the RoPE queries are
+    gathered over the axis (B, s, H, kv_lora_rank + rope), every head is
+    scored against this card's latents and keeps its partial latent
+    context ``Σ p · c_kv``; merged (``attention.merge_over_axis``), each
+    owner applies ``W_v,h``. The reference's association is ``q · (W c)``
+    with ``W c`` rounded to ``cd``: in bfloat16 compute the two differ by
+    that rounding. Returns (out (B, s, heads x v) in ``cd``, the c_kv and k_rope
+    caches, pos + s)."""
+    b, s = q.shape[:2]
+    qk_head = qk_nope_dim + rope_dim
+    rows, r = c_cache.shape[1], c_cache.shape[-1]
+    lo = axis.rank * rows
+    check_cache_room(pos, s, rows * axis.size)
+    c_cache = write_rows(c_cache, c_new, pos, lo)
+    kr_cache = write_rows(kr_cache, kr_new, pos, lo)
+    steps = torch.arange(s, dtype=torch.int32, device=q.device)
+    q_pos = pos[:, None] + steps[None, :]
+    k_pos = lo + torch.arange(rows, dtype=torch.int32, device=q.device)
+    mask = ((q_pos[:, :, None] >= k_pos[None, None, :])
+            & (k_pos[None, None, :] < (pos + s)[:, None, None]))
+    q = q.reshape(b, s, -1, qk_head)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    cos, sin = rope_angles(q_pos, rope_dim, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    w = w.to(cd).reshape(r, q.shape[2], qk_nope_dim + v_head_dim)
+    c, kr = c_cache.to(cd).float(), kr_cache.to(cd).float()
+    scale = 1.0 / (qk_head ** 0.5)
+    feats = torch.cat([torch.einsum("bqhn,rhn->bqhr", q_nope.float(),
+                                    w[..., :qk_nope_dim].float()),
+                       q_rope.float()], dim=-1)
+    if owners:
+        feats = axis.gather(feats, 2)
+    scores = (torch.einsum("bqhr,bsr->bhqs", feats[..., :r], c)
+              + torch.einsum("bqhd,bsd->bhqs", feats[..., r:], kr))
+    ctx = merge_over_axis(axis, *_latent_partials(scores * scale, c, mask),
+                          owners)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w[..., qk_nope_dim:].float())
+    return out.to(cd).reshape(b, s, -1), c_cache, kr_cache, pos + s
 
 
 def init_mla_cache(batch: int, max_seq: int, kv_lora_rank: int = 512,

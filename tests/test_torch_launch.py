@@ -21,8 +21,11 @@
   process, equal a closed form of the layout's collectives: FSDP's
   gathers and gradient reduce-scatters over the data axis, the
   row-parallel sums over the model axis (two a layer, attention's again
-  in the recompute), the embedding's and the backward's sums, the label
-  pick's logits and the norms' gradients; a ring model prices each.
+  in the recompute), the embedding's and the backward's sums, the
+  vocab-parallel loss's MAX and SUM (no gather of the logits' rows) and
+  the norms' gradients; a ring model prices each. qwen3-0.6b at full size
+  on (16, 16), train_4k and decode_32k, gathers under 1e9 wire bytes a
+  device over the model axis.
 * (e) ``dryrun --sam`` and ``roofline_sweep --sam`` records (the port's
   on the CPU) equal the reference's cell for cell.
 * (f) ``dryrun --sam`` refuses to run without a GPU unless told
@@ -292,13 +295,13 @@ def _closed_form(cfg, b, s, m, d):
         # the row-parallel sums in float32: two a layer forward, attention's
         # again in the recompute; the embedding's sum, and the backward's
         # sums at the column-parallel inputs (two a layer, the head's), in
-        # the compute dtype
+        # the compute dtype; the vocab-parallel loss's MAX of a float32 a
+        # token and SUM of two (no gather of the logits' rows)
         "all-reduce@model": (
-            3 * L + 1 + 2 * L + 1 + 2,
+            3 * L + 1 + 2 * L + 1 + 2 + 2,
             3 * L * act * 4 + (1 + 2 * L + 1) * act * cb
-            + 2 * L * hd * p4),         # + the q and k norms' gradients
-        # the label pick's whole vocabulary rows
-        "all-gather@model": (1, b // d * s * V * 4),
+            + 2 * L * hd * p4           # + the q and k norms' gradients
+            + 3 * (b // d) * s * 4),
         # the norm scales' gradients: ln1 and ln2 a layer, ln_f; the q and
         # k norms (stacked)
         "all-reduce@data": (2 * L + 1 + 2,
@@ -332,6 +335,21 @@ def test_collective_bytes_equal_the_closed_form(tiny_shapes):
     # four devices of one node: every group at NVLink's rate
     r = analyze_cell({"flops": 1, "bytes accessed": 1}, meta)
     assert r["t_collective"] == pytest.approx(wire / NVLINK_BW, rel=1e-12)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_full_size_cell_gathers_little_over_the_model_axis(shape):
+    """qwen3-0.6b at full size on (16, 16), placed on meta tensors: the
+    vocab-parallel loss (train_4k) and the KV cache read on its own
+    sequence shards (decode_32k) leave under 1e9 wire bytes a device of
+    all-gather over the model axis (3.778e10 and 2.841e10 when the
+    logits' rows and the cache were gathered whole)."""
+    got = dryrun.count_collectives(get_config("qwen3-0.6b"), SHAPES[shape],
+                                   "dots", 1, False, (16, 16),
+                                   ("data", "model"))
+    assert "refused" not in got, got
+    gather = got["by_axis"].get("all-gather@model", {"wire": 0.0})
+    assert gather["wire"] < 1e9, got["by_axis"]
 
 
 # -- (e) the --sam records against the reference's -----------------------------

@@ -20,7 +20,9 @@
     reduced config at widths whose projections the rules split over the
     model axis (d_model 256, head dim 64, d_ff 256: at the reduced widths
     every leaf is under the rules' 2^16-element floor and replicated),
-    for ``moonshot-v1-16b-a3b-ep`` and ``deepseek-v3-671b-tp``, one
+    for ``gemma-2b-tp``, gemma-2b's at the same widths (4 heads and one
+    KV head, its vocabulary and embedding split), for
+    ``moonshot-v1-16b-a3b-ep`` and ``deepseek-v3-671b-tp``, one
     dense and one MoE layer at widths where the router, the expert and
     shared-expert stacks and (deepseek) every MLA projection split, and
     for ``xlstm-125m-tp`` (d_model 128) and ``zamba2-2.7b-tp`` (d_model
@@ -32,16 +34,27 @@
     while the layer runs, no expert stack gathered (nor its gradient
     reduce-scattered) on any axis, the tokens moved by all-to-alls over
     the data axis; MLA's ``wq_b``/``wkv_b``/``wo`` shards half their
-    model-axis dim; a placed float32 prefill and two decode steps of the
-    MLA case and of the two SSM cases within 1e-5 of the plain ones;
+    model-axis dim; a placed float32 prefill and two decode steps of
+    ``qwen3-0.6b-tp``, ``gemma-2b-tp``, the MLA case and the two SSM
+    cases within 1e-5 of the plain ones, each decode step reading the
+    attention caches on their own sequence shards (no all-gather,
+    all-to-all or reduce-scatter of a cache leaf's size) and every cache
+    back on the placements it came with after each step, and
+    ``qwen3-0.6b-tp``'s with caches of 15 rows, which the rules leave
+    whole over the model axis; the same for ``llama3.2-3b-odd`` and
+    ``deepseek-v3-671b-odd``, whose 3 heads the model axis does not
+    divide (served only), their decode steps merging every head's
+    partials by a MAX and a SUM all-reduce;
   - the SSM cases' split projections (mLSTM's ``wq``/``wk``/``wv`` and
     ``w_down``, mamba2's ``out_proj``, the shared block's) keep half
     their model-axis dim on each card while their layer runs;
   - that step's collectives (``launch.dryrun.CollectiveCounter``): no
-    all-gather over the model axis but the label pick's logits (so none
-    of a split projection), two all-reduces over the model axis a layer
-    in the forward (attention's and the MLP's row-parallel sums) and the
-    vocab-parallel embedding's one, and every split projection's local
+    all-gather over the model axis at all (none of a split projection,
+    and the loss is vocab-parallel: no gather of the logits' rows), two
+    all-reduces over the model axis a layer in the forward (attention's
+    and the MLP's row-parallel sums), the vocab-parallel embedding's one
+    and the loss's two (a MAX and a SUM), and every split projection's
+    local
     shard half its model-axis dim and whole on the other while its layer
     runs;
   - the grouped MoE dispatch (g = 2, capacity factor 1.0) within 1e-5 of
@@ -50,7 +63,8 @@
   - a checkpoint written on (2, 2) restores on (2, 2), on (4, 1) and on
     one device with every leaf equal, and the loss of the resumed step
     replays the uninterrupted run's bit for bit on each (the token
-    losses are summed whole on every process);
+    losses are summed whole on every process; at the reduced widths the
+    vocabulary is whole, so the loss does not depend on the mesh);
   - ``reshard`` from (2, 2) to (4, 1) keeps every full tensor.
 * (c) ``python -m torch.distributed.run --standalone --nproc-per-node 4
   -m repro_torch.launch.train --arch qwen3-0.6b --reduced --device cpu
@@ -98,15 +112,15 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import attention, mla, moe  # noqa: E402
 from repro_torch.models.common import params_from_numpy  # noqa: E402
 from repro_torch.train.train_step import (remat_loss_fn,  # noqa: E402
                                           value_and_grad)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "qwen3-0.6b-tp",
-         "moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp", "xlstm-125m-tp",
-         "zamba2-2.7b-tp")
+         "gemma-2b-tp", "moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp",
+         "xlstm-125m-tp", "zamba2-2.7b-tp")
 # cases beyond the registered reduced configs: (arch, widths replaced).
 # At the MoE cases' widths the router, the expert stacks, the shared
 # experts and (deepseek) every MLA projection reach the rules' 2^16
@@ -114,6 +128,9 @@ ARCHS = ("qwen3-0.6b", "moonshot-v1-16b-a3b", "qwen3-0.6b-tp",
 # model axis; one dense layer and one MoE layer each
 WIDE = {"qwen3-0.6b-tp": ("qwen3-0.6b",
                           dict(d_model=256, head_dim=64, d_ff=256)),
+        # gemma-2b's MQA (4 heads, one KV head) where its vocabulary and
+        # embedding reach the rules' floor and split over the model axis
+        "gemma-2b-tp": ("gemma-2b", dict(d_model=256, head_dim=64, d_ff=256)),
         "moonshot-v1-16b-a3b-ep": ("moonshot-v1-16b-a3b", dict(
             n_layers=2, d_model=512, head_dim=32, n_experts=128,
             moe_d_ff=64)),
@@ -125,11 +142,25 @@ WIDE = {"qwen3-0.6b-tp": ("qwen3-0.6b",
         # model axis (the reduced ones fall under the 2^16 floor)
         "xlstm-125m-tp": ("xlstm-125m", dict(d_model=128)),
         "zamba2-2.7b-tp": ("zamba2-2.7b", dict(
-            d_model=256, head_dim=32, n_heads=8, n_kv_heads=8, d_ff=256))}
+            d_model=256, head_dim=32, n_heads=8, n_kv_heads=8, d_ff=256)),
+        # heads that the model axis of 2 does not divide, as gemma-2b's 8
+        # and llama3.2-3b's 24 on 16: llama3.2-3b's GQA group of three
+        # (3 heads, one KV head), its query and output projections split
+        # inside a head, and MLA with 3 heads, its weights whole; served
+        # only (no train step)
+        "llama3.2-3b-odd": ("llama3.2-3b", dict(
+            d_model=256, n_heads=3, n_kv_heads=1, head_dim=128, d_ff=256)),
+        "deepseek-v3-671b-odd": ("deepseek-v3-671b", dict(
+            n_layers=1, d_model=1024, n_heads=3, n_kv_heads=3, d_ff=64,
+            q_lora_rank=64, kv_lora_rank=64, qk_nope_dim=96, rope_dim=32,
+            v_head_dim=32))}
 EP = ("moonshot-v1-16b-a3b-ep", "deepseek-v3-671b-tp")
 SSM = ("xlstm-125m-tp", "zamba2-2.7b-tp")
+ODD = ("llama3.2-3b-odd", "deepseek-v3-671b-odd")
 # the cases whose placed prefill and decode steps are held to the plain
-SERVED = ("deepseek-v3-671b-tp",) + SSM
+SERVED = ("qwen3-0.6b-tp", "gemma-2b-tp", "deepseek-v3-671b-tp") + SSM + ODD
+# the attention caches' leaves, and their rank in one layer
+KV_LEAVES = {"k": 4, "v": 4, "c_kv": 3, "k_rope": 3}
 # the split projections and the tensor dim each splits over the model axis
 SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1,
          "w_down": 0}
@@ -341,22 +372,47 @@ out["moe/dense"] = moe.moe_dense_dispatch(
 
 # a placed prefill and two decode steps against the plain ones on one
 # device (the same MoE groups: the policy of a (2, 2) mesh)
-def serve(arch, placed):
+def serve(arch, placed, rows=16, tag=None):
+    tag = tag or arch
     cfg, params, _ = tree_of(arch)
     toks = torch.tensor(np.random.default_rng(3).integers(
         0, cfg.vocab, (@B@, 10)))
-    caches = M.init_caches(cfg, @B@, 16, dtype=torch.float32, device="cpu")
+    caches = M.init_caches(cfg, @B@, rows, dtype=torch.float32, device="cpu")
     if placed:
         params = S.place(params, mesh22)
         caches = S.place(caches, mesh22, S.cache_shardings(mesh22, caches))
+        came = [t.placements for t in M.tree_leaves(caches)]
     logits = []
-    for lo, hi in ((0, 8), (8, 9), (9, 10)):
+    for i, (lo, hi) in enumerate(((0, 8), (8, 9), (9, 10))):
         b = {"tokens": toks[:, lo:hi]}
         if placed:
             b = S.place(b, mesh22, S.batch_shardings(mesh22, b))
-        lg, caches = M.forward(cfg, params, b, caches)
+        with CollectiveCounter(mesh22.device_mesh) as moved:
+            lg, caches = M.forward(cfg, params, b, caches)
         logits.append(S.full_tensors(lg).numpy())
+        if placed:
+            # each step's collectives, and the caches on the placements
+            # they came with
+            out[f"serve/{tag}/collectives/{i}"] = np.asarray(
+                moved.records, dtype=object)
+            out[f"serve/{tag}/kept/{i}"] = np.asarray(
+                [t.placements for t in M.tree_leaves(caches)] == came)
+    if placed:
+        # the bytes of one layer's attention cache leaf on a card, and
+        # whole over the model axis (a stack of no layers holds none)
+        one = set()
+        S.map_with_path(lambda path, t: one.add(
+            t.to_local()[(0,) * (t.ndim - @KV_LEAVES@[path[-1]])].numel()
+            * t.element_size()) if path[-1] in @KV_LEAVES@ and t.numel()
+            else None, caches)
+        out[f"serve/{tag}/cache_bytes"] = np.asarray(
+            sorted(one | {n * 2 for n in one}))
     return logits
+
+# a cache of 15 rows, which the model axis of 2 does not divide: the rules
+# leave it whole over the axis
+for i, lg in enumerate(serve("qwen3-0.6b-tp", True, 15, "whole-cache")):
+    out[f"serve/whole-cache/placed/{i}"] = lg
 
 for arch in @SERVED@:
     for i, lg in enumerate(serve(arch, True)):
@@ -443,7 +499,7 @@ def _torchrun(args, **kw):
 def _subst(script):
     """``script`` with its ``@NAME@`` constants filled in."""
     for name, v in (("ARCHS", ARCHS), ("WIDE", WIDE), ("SERVED", SERVED),
-                    ("SSM", SSM),
+                    ("SSM", SSM), ("KV_LEAVES", KV_LEAVES),
                     ("WATCH", sorted({*SPLIT_SSM, *SPLIT_MLA})),
                     ("D_MODEL", MOE["d_model"]),
                     ("D_FF", MOE["d_ff"]), ("N_EXPERTS", MOE["n_experts"]),
@@ -478,7 +534,7 @@ def _one_device(inputs):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("placement")
     inputs = {}
-    for arch in ARCHS:
+    for arch in ARCHS + ODD:
         for k, v in leaves(ref_tree(arch)).items():
             inputs[f"{arch}/param{k}"] = v
         for k, v in make_batch(cfg_of(arch, ref_config), B, S).items():
@@ -560,18 +616,19 @@ def test_split_layers_issue_the_tensor_parallel_collectives(runs):
     port, arch = runs["port"], "qwen3-0.6b-tp"
     cfg = cfg_of(arch, get_config)
     local = B // 2 * S                   # tokens on one data shard
-    logits = local * cfg.vocab * 4       # the label pick's float32 rows
     act = local * cfg.d_model * 4        # a float32 (B, S, D) activation
     for key in ("fwd", "step"):
         gathers = [r for r in port[f"{arch}/{key}"]
                    if r[0] == "all-gather" and r[1] == "model"]
-        assert [r[3] for r in gathers] == [logits], key
+        assert not gathers, (key, gathers)
     fwd = [r for r in port[f"{arch}/fwd"]
            if r[0] == "all-reduce" and r[1] == "model"]
     # two a layer (attention's and the MLP's row-parallel sums) and the
-    # vocab-parallel embedding's
-    assert len(fwd) == 2 * cfg.n_layers + 1
-    assert all(r[3] == act for r in fwd)
+    # vocab-parallel embedding's, then the vocab-parallel loss's: the MAX
+    # of a float32 a token, and the SUM of two stacked
+    assert len(fwd) == 2 * cfg.n_layers + 3
+    assert all(r[3] == act for r in fwd[:-2])
+    assert [r[3] for r in fwd[-2:]] == [local * 4, 2 * local * 4]
     shards = port[f"{arch}/shards"]
     assert {r[0] for r in shards} == set(SPLIT)
     for name, whole, part in shards:
@@ -631,6 +688,82 @@ def _placed_serving_equals_the_plain(port, arch):
 
 def test_placed_mla_prefill_and_decode_equal_the_plain_ones(runs):
     _placed_serving_equals_the_plain(runs["port"], "deepseek-v3-671b-tp")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b-tp", "gemma-2b-tp"])
+def test_placed_attention_prefill_and_decode_equal_the_plain_ones(arch,
+                                                                  runs):
+    """qwen3-0.6b-tp (GQA, heads split) and gemma-2b-tp (MQA) on (2, 2):
+    the prefill moves the cache to the heads' placements and back, the
+    decode steps read it on its own sequence shards; each step's logits
+    within 1e-5 of one device's."""
+    _placed_serving_equals_the_plain(runs["port"], arch)
+
+
+@pytest.mark.parametrize("arch", ODD)
+def test_placed_read_of_heads_the_model_axis_does_not_divide(arch, runs):
+    """llama3.2-3b-odd (3 heads, one KV head) and deepseek-v3-671b-odd
+    (MLA, 3 heads) on (2, 2): the decode steps read the cache on its own
+    sequence shards and merge every head's partials by a MAX and a SUM
+    all-reduce over the model axis (no all-to-all to the heads' owners);
+    llama's cards then keep their columns of its row-parallel ``wo``, and
+    MLA's every head with the weights whole. The prefill and decode
+    logits within 1e-5 of one device's."""
+    port = runs["port"]
+    _placed_serving_equals_the_plain(port, arch)
+    cfg = cfg_of(arch, get_config)
+    assert cfg.n_heads % 2
+    for i in (1, 2):
+        ops = [(r[0], r[1]) for r in port[f"serve/{arch}/collectives/{i}"]
+               if r[1] == "model"]
+        assert ("all-to-all", "model") not in ops, (i, ops)
+        assert ops.count(("all-reduce", "model")) >= 2 * cfg.n_layers, ops
+
+
+def test_placed_cache_whole_over_the_model_axis_stays_whole(runs):
+    """qwen3-0.6b-tp on (2, 2) with caches of 15 rows, which the model
+    axis does not divide (the rules leave them whole over it): every card
+    writes every KV head's new rows and reads its own heads, the logits
+    of the prefill and two decode steps within 1e-5 of one device's, no
+    cache moved, each cache back on the placements it came with."""
+    port = runs["port"]
+    sizes = set(port["serve/whole-cache/cache_bytes"].tolist())
+    for i in range(3):
+        got = port[f"serve/whole-cache/placed/{i}"]
+        want = port[f"serve/qwen3-0.6b-tp/plain/{i}"]
+        assert rel(got, want) <= F32_LOSS, (i, rel(got, want))
+        assert bool(port[f"serve/whole-cache/kept/{i}"])
+        assert not [r for r in port[f"serve/whole-cache/collectives/{i}"]
+                    if r[0] != "all-reduce" and r[3] in sizes]
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_placed_decode_moves_no_cache_and_keeps_its_placements(arch, runs):
+    """A placed decode step issues no all-gather, all-to-all or
+    reduce-scatter of the size of an attention cache's leaf (one layer's
+    K, V, latents or RoPE keys, on a card or whole over the model axis):
+    the cache is read on its own sequence shards. After the prefill and
+    each decode step every cache leaf is on the placements it came with.
+    A prefill that takes the cache path (``read_path``: its queries
+    outweigh the cache) does move the cache, which shows that the check
+    sees such a move."""
+    port = runs["port"]
+    sizes = set(port[f"serve/{arch}/cache_bytes"].tolist())
+    moved = {i: [r for r in port[f"serve/{arch}/collectives/{i}"]
+                 if r[0] != "all-reduce" and r[3] in sizes]
+             for i in range(3)}
+    assert not moved[1] and not moved[2], moved
+    assert all(bool(port[f"serve/{arch}/kept/{i}"]) for i in range(3))
+    cfg = cfg_of(arch, get_config)
+    if cfg.use_mla:
+        prefill = mla.read_path(B, 8, 16, cfg.n_heads, cfg.kv_lora_rank,
+                                cfg.rope_dim, torch.float32)
+    else:
+        prefill = attention.read_path(
+            B, 8, 16, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            torch.float32, torch.float32)
+    if prefill == "cache":
+        assert moved[0]
 
 
 @pytest.mark.parametrize("arch", SSM)
